@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one
+NVIDIA card: builds its CUDA kernels from the sources in this checkout,
+holds each against its plain PyTorch version, and serves requests
+through ``DecodeEngine`` at the full width of llama3-8b.
+
+    python3 chip_smoke.py            # on a machine with a CUDA card
+    python3 chip_smoke.py --cpu      # rehearsal: debug preset, plain
+                                     # versions, no kernel, no result
+
+Phases, each printed as it ends:
+  1. the card's name and power limit; every kernel built (one nvcc per
+     source, all at once), with the build seconds and ptxas's register
+     and spill counts;
+  2. each kernel against its plain version at the shapes the main path
+     gives it: max-abs error, and its time beside the plain version's,
+     one PyTorch library call's and the card's bound for the same work;
+  3. a small input served on the card and on the CPU with the same
+     weights: identical greedy tokens;
+  4. the main path: llama3-8b (32 layers, bf16, random weights from
+     --seed) behind DecodeEngine(capacity=4, block_size=16) serves 7
+     requests of 32-512 prompt tokens and 16 new tokens each, two of
+     them sharing a 3-page prompt prefix. Launch counts are zeroed just
+     before and read just after; every kernel must have launched, the
+     paged-decode kernel once per layer and decode step. The first
+     decode step is replayed with the kernel and with the plain
+     attention: logits within 5e-2 and the same argmax.
+Then one JSON line of per-kernel numbers, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA card the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
+H100_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}   # dense tensor core / fp32 CUDA core
+
+
+def check(cond, what):
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def say(phase, **fields):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, flush=None):
+    """Median milliseconds of ``fn`` by CUDA events, each run after
+    ``flush`` (which overwrites the L2 cache) so inputs come cold from
+    device memory, as they do for a decode step."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+# -- phase 2: paged decode kernel against its plain version ------------------
+
+def paged_case(dtype, device, seed):
+    """llama3-8b decode shapes: B=4, kvh=8, G=4, hd=128, bs=16; rows of
+    length 1, 1999, 512 (a multiple of bs) and 0 (an all-NULL table),
+    pages scattered over the pool."""
+    B, kvh, G, hd, bs = 4, 8, 4, 128, 16
+    lens = np.asarray([1, 1999, 512, 0], np.int32)
+    mb = -(-int(lens.max()) // bs)
+    n_pages = 1 + sum(-(-int(n) // bs) for n in lens) + 64
+    rng = np.random.RandomState(seed)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((B, mb), np.int32)
+    for b in range(B):
+        for j in range(-(-int(lens[b]) // bs)):
+            table[b, j] = free.pop()
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, kvh, G, hd), generator=g, device=device).to(dtype)
+    kp = torch.randn((n_pages, bs, kvh, hd), generator=g,
+                     device=device).to(dtype)
+    vp = torch.randn((n_pages, bs, kvh, hd), generator=g,
+                     device=device).to(dtype)
+    kp[0] = 1e3                     # NULL page: never read within a length
+    vp[0] = -1e3
+    return (q, kp, vp, torch.as_tensor(table, device=device),
+            torch.as_tensor(lens, device=device))
+
+
+def paged_bound_ms(q, kp, table, lens):
+    """Least time for the work this input needs: K and V of each row's
+    valid keys read once, q, table and lengths read, out written."""
+    B, kvh, G, hd = q.shape
+    n = int(lens.sum())
+    elt = q.element_size()
+    nbytes = (2 * n * kvh * hd * elt + q.numel() * elt
+              + q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
+    flops = 4 * n * kvh * G * hd
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_FLOPS[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def sdpa_yardstick(q, kp, vp, table, lens):
+    """One PyTorch library call for the same function: gather the
+    pages, then scaled_dot_product_attention with a key mask. Timed
+    only; the port never calls it."""
+    B, kvh, G, hd = q.shape
+    mb, bs = table.shape[1], kp.shape[1]
+    idx = table.reshape(-1).long()
+    ck = kp[idx].reshape(B, mb * bs, kvh, hd).transpose(1, 2)
+    cv = vp[idx].reshape(B, mb * bs, kvh, hd).transpose(1, 2)
+    mask = (torch.arange(mb * bs, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, kvh * G, 1, hd), ck, cv, attn_mask=mask,
+        enable_gqa=True)
+    return out.reshape(B, kvh, G, hd)
+
+
+def phase_kernels(on_card, seed):
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    device = "cuda" if on_card else "cpu"
+    out = {}
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
+        if on_card else None
+    flush = (lambda: flush_buf.zero_()) if on_card else None
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        args = paged_case(dtype, device, seed)
+        got = pa.paged_decode_attention(*args)
+        want = pa.paged_attn_reference(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == want.shape,
+              "kernel output is fp32 of q's shape")
+        check(bool(torch.isfinite(got).all()), "kernel output is finite")
+        check(bool((got[3] == 0).all()), "length-0 row gives zeros")
+        err = float((got - want).abs().max())
+        name = str(dtype).replace("torch.", "")
+        say("kernel", name="paged_decode", dtype=name, max_abs_err=err,
+            tol=tol)
+        check(err <= tol, f"paged_decode {name} max-abs {err} <= {tol}")
+        if not on_card:
+            continue
+        ms = cuda_ms(lambda: pa.paged_decode_attention(*args), flush=flush)
+        plain_ms = cuda_ms(lambda: pa.paged_attn_reference(*args),
+                           flush=flush)
+        lib_ms = cuda_ms(lambda: sdpa_yardstick(*args), flush=flush)
+        lib = sdpa_yardstick(*args)
+        lib_err = float((lib[:3].float() - want[:3]).abs().max())
+        bound_ms, bound_by = paged_bound_ms(args[0], args[1], args[3],
+                                            args[4])
+        say("kernel", name="paged_decode", dtype=name, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, library_max_abs_err=lib_err,
+            bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms)
+    return out
+
+
+# -- phases 3 and 4: serving --------------------------------------------------
+
+def drive(eng, waves, on_card, record=None):
+    """Submit each wave once the previous one has drained; returns the
+    requests and the decode and prefill wall seconds."""
+    reqs, t_decode, t_admit = [], 0.0, 0.0
+    for wave in waves:
+        reqs += [eng.submit(p, mn) for p, mn in wave]
+        for _ in range(400):
+            t = time.perf_counter()
+            eng.admit([])
+            t_admit += time.perf_counter() - t
+            if record is not None:
+                record(eng)
+                record = None
+            t = time.perf_counter()
+            eng.decode_once()
+            if on_card:
+                torch.cuda.synchronize()
+            t_decode += time.perf_counter() - t
+            if eng.idle():
+                break
+        else:
+            raise RuntimeError("engine did not drain")
+    return reqs, t_decode, t_admit
+
+
+def phase_small_reference(on_card, seed):
+    """The debug preset in fp32, served on the card (kernel) and on the
+    CPU (plain version) with the same weights: identical tokens."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cpu_model = LlamaForCausalLM(
+        "debug", device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    wave = [(rng.randint(1, 128, (n,)).astype(np.int32), mn)
+            for n, mn in ((8, 16), (10, 16), (5, 4), (30, 6), (6, 9))]
+    outs = []
+    for model in (cpu_model, copy.deepcopy(cpu_model).to(
+            "cuda" if on_card else "cpu")):
+        eng = DecodeEngine(model, capacity=4, s_max=96, chunk=4,
+                           block_size=8)
+        reqs, _, _ = drive(eng, [wave], on_card and model is not cpu_model)
+        outs.append([r.wait(timeout=1) for r in reqs])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    say("small", preset="debug", requests=len(wave), identical=same)
+    check(same, "greedy tokens on the card equal the CPU's")
+
+
+def main_requests(vocab, seed):
+    """7 requests of 16 new tokens: prompts of 32-512 tokens; the first
+    and the last share a 48-token (3-page) prefix, and the last is
+    submitted in the second wave, after the first has retired."""
+    rng = np.random.RandomState(seed)
+    tok = lambda n: rng.randint(1, vocab, (n,)).astype(np.int32)
+    shared = tok(48)
+    first = np.concatenate([shared, tok(20)])
+    last = np.concatenate([shared, tok(40)])
+    wave1 = [(first, 16), (tok(512), 16), (tok(32), 16), (tok(200), 16)]
+    wave2 = [(tok(333), 16), (tok(128), 16), (last, 16)]
+    return [wave1, wave2]
+
+
+def phase_main(on_card, args):
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import llama as ll
+    device = "cuda" if on_card else "cpu"
+    cfg = ll.LlamaConfig(**ll.LLAMA_PRESETS[args.preset])
+    dtype = torch.bfloat16 if on_card else torch.float32
+    t0 = time.perf_counter()
+    model = ll.LlamaForCausalLM(
+        cfg, dtype=dtype, device=device,
+        generator=torch.Generator(device=device).manual_seed(args.seed))
+    if on_card:
+        torch.cuda.synchronize()
+    say("main", preset=args.preset, layers=cfg.num_hidden_layers,
+        hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+        kv_heads=cfg.num_key_value_heads, vocab=cfg.vocab_size,
+        dtype=str(dtype).replace("torch.", ""),
+        init_s=round(time.perf_counter() - t0, 3))
+    eng = DecodeEngine(model, capacity=4, s_max=640, chunk=8,
+                       block_size=16)
+    waves = main_requests(cfg.vocab_size, args.seed)
+    snap = {}
+
+    def record(e):
+        # state at the first decode step (after the first admission and
+        # the page growth that decode_once would do first; growing is
+        # idempotent), for the first-step replay
+        e._grow_rows()
+        snap.update(kp=e._kp.clone(), vp=e._vp.clone(),
+                    tables=e._tables.copy(), lens=e._lens.copy(),
+                    tok=e._tok.copy(),
+                    slots={i: r["req"] for i, r in enumerate(e._rows)
+                           if r is not None})
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    pa.launch_counts.clear()
+    reqs, t_decode, t_admit = drive(eng, waves, on_card, record=record)
+    launches = dict(pa.launch_counts)
+    st = eng.stats()
+    n_req = sum(len(w) for w in waves)
+    check(len(reqs) == n_req and all(r.error is None for r in reqs),
+          "every request finished")
+    for r in reqs:
+        res = r.wait(timeout=1)
+        check(res.size == r.ids.size + r.max_new,
+              "each request returns prompt + its token count")
+        check(bool(((res >= 0) & (res < cfg.vocab_size)).all()),
+              "tokens lie in the vocabulary")
+    check(st["prefix_hit_tokens"] >= 32,
+          f"the shared prefix was served from the cache "
+          f"({st['prefix_hit_tokens']} tokens)")
+    expect = cfg.num_hidden_layers * st["device_steps"]
+    if on_card:
+        check(launches.get("paged_decode", 0) == expect,
+              f"paged_decode launched {launches.get('paged_decode', 0)} "
+              f"times, expected layers x decode steps = {expect}")
+    decode_tokens = sum(r.max_new - 1 for r in reqs)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say("main", requests=n_req, retired=st["retired"],
+        prefix_hit_tokens=st["prefix_hit_tokens"],
+        decode_steps=st["device_steps"], launches=json.dumps(launches),
+        decode_s=round(t_decode, 4), admit_prefill_s=round(t_admit, 4),
+        decode_tokens_per_s=round(decode_tokens / t_decode, 2),
+        peak_mem_gib=round(peak / 2 ** 30, 3))
+
+    replay_first_step(cfg, model, snap, device)
+    return launches, model
+
+
+def plain_attention_f64(q, kp, vp, table, lens):
+    """The plain version's math in float64, cast to float32: the same
+    function with other rounding, to show the noise floor of a bf16
+    step."""
+    B, mb = table.shape
+    N, bs, kvh, hd = kp.shape
+    idx = table.reshape(-1).long()
+    ck = kp[idx].reshape(B, mb * bs, kvh, hd).double()
+    cv = vp[idx].reshape(B, mb * bs, kvh, hd).double()
+    mask = torch.arange(mb * bs, device=q.device)[None, :] < lens[:, None]
+    s = torch.einsum("bngd,btnd->bngt", q.double(), ck) / hd ** 0.5
+    p = torch.softmax(s.masked_fill(~mask[:, None, None, :],
+                                    float("-inf")), dim=-1)
+    return torch.einsum("bngt,btnd->bngd", p, cv).float()
+
+
+def replay_first_step(cfg, model, snap, device):
+    """Replay the main path's first decode step on the state recorded
+    just before it.
+
+    In bf16, as the engine ran it: every layer's kernel output is held
+    against the plain version on the same inputs (<= 2e-2), the argmax
+    equals the plain step's and the tokens the engine emitted. The bf16
+    logits of the kernel step and the plain step are printed beside the
+    noise floor of bf16 rounding (plain in fp32 against plain in fp64):
+    kernel and plain agree to about 1e-7 before the cast to bf16, but
+    each rounding flip grows over 32 layers of random weights, so the
+    logits are not held to 5e-2 in bf16. In fp32, with the same weights
+    and state upcast, rounding does not grow, and the kernel step's
+    logits are held to the plain step's within 5e-2 with the same
+    argmax."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import llama as ll
+    pa_ref = pa.paged_attn_reference
+    tok = torch.as_tensor(snap["tok"], device=device).long()
+    tables = torch.as_tensor(snap["tables"], device=device)
+    lens = torch.as_tensor(snap["lens"], device=device)
+    rows = sorted(snap["slots"])
+    layer_errs = []
+
+    def kernel_checked(*a):
+        out = pa.paged_decode_attention(*a)
+        layer_errs.append(float((out - pa_ref(*a)).abs().max()))
+        return out
+
+    def step(weights, kp, vp, attn):
+        with torch.no_grad():
+            return ll._paged_decode_step(cfg, *weights, tok, kp.clone(),
+                                         vp.clone(), tables, lens,
+                                         attn=attn)[rows]
+
+    w16 = model.weights()
+    k16 = step(w16, snap["kp"], snap["vp"], kernel_checked)
+    p16 = step(w16, snap["kp"], snap["vp"], pa_ref)
+    f64 = step(w16, snap["kp"], snap["vp"], plain_attention_f64)
+    emitted = [int(snap["slots"][s].result[snap["slots"][s].ids.size + 1])
+               for s in rows]
+    err16 = float((k16 - p16).abs().max())
+    floor16 = float((p16 - f64).abs().max())
+    say("main", first_step=str(w16[1].dtype).replace("torch.", ""),
+        layers_checked=len(layer_errs),
+        attention_max_abs_err=max(layer_errs), logits_max_abs_err=err16,
+        noise_floor_plain_fp32_vs_fp64=floor16,
+        same_argmax=bool((k16.argmax(-1) == p16.argmax(-1)).all()),
+        engine_tokens=emitted, replay_argmax=k16.argmax(-1).tolist())
+    check(bool(torch.isfinite(k16).all()), "first-step logits are finite")
+    check(len(layer_errs) == cfg.num_hidden_layers
+          and max(layer_errs) <= 2e-2,
+          "every layer's attention agrees with the plain version")
+    check(bool((k16.argmax(-1) == p16.argmax(-1)).all()),
+          "bf16 first-step argmax equal with kernel and plain")
+    check(emitted == k16.argmax(-1).tolist(),
+          "engine's first decoded tokens = replay argmax")
+    st, embed, fnorm, head = w16
+    w32 = ({n: w.float() for n, w in st.items()}, embed.float(),
+           fnorm.float(), head.float())
+    k32 = step(w32, snap["kp"].float(), snap["vp"].float(),
+               pa.paged_decode_attention)
+    p32 = step(w32, snap["kp"].float(), snap["vp"].float(), pa_ref)
+    err32 = float((k32 - p32).abs().max())
+    same32 = bool((k32.argmax(-1) == p32.argmax(-1)).all())
+    say("main", first_step="fp32", logits_max_abs_err=err32,
+        same_argmax=same32)
+    check(err32 <= 5e-2, f"fp32 first-step logits max-abs {err32} <= 5e-2")
+    check(same32, "fp32 first-step argmax equal with kernel and plain")
+    del w32
+
+
+def phase_profile(model, on_card):
+    """One decode_once of 4 rows (128-token prompts) under
+    torch.profiler: host wall against summed device kernel time, and the
+    kernels that take the most device time. Launches here come after
+    the main path's counts were read."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    eng = DecodeEngine(model, capacity=4, s_max=640, chunk=8,
+                       block_size=16)
+    rng = np.random.RandomState(1)
+    for _ in range(4):
+        eng.submit(rng.randint(1, model.config.vocab_size, (128,)), 24)
+    eng.admit([])
+    eng.decode_once()                       # warm
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        eng.decode_once()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    n = sum(e.count for e in kernels)
+    say("profile", decode_once_wall_ms=round(wall * 1e3, 3),
+        device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
+        device_busy_share=round(dev_us / 1e6 / wall, 4),
+        steps=eng.chunk)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        say("profile", kernel=e.key[:60].replace(" ", "_"), count=e.count,
+            device_ms=round(e.self_device_time_total / 1e3, 3))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on the CPU with the plain versions")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="after the main path, profile one decode_once")
+    args = ap.parse_args()
+    args.preset = "debug" if args.cpu else "llama3-8b"
+    on_card = not args.cpu
+    if on_card and not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs an NVIDIA card "
+              "(--cpu rehearses on the CPU)", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.kernels import _build
+    if on_card:
+        print(card_line(), flush=True)
+        kind = torch.cuda.get_device_name(0)
+        say("card", kind=kind, count=torch.cuda.device_count(),
+            torch=torch.__version__, cuda=torch.version.cuda)
+        t0 = time.perf_counter()
+        _build.build_all(["paged_decode"])
+        say("build", kernels="paged_decode",
+            seconds=round(time.perf_counter() - t0, 3))
+        for line in _build.build_log("paged_decode").splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas: " + line.strip().split("ptxas info    : ")[-1])
+    kernels = phase_kernels(on_card, args.seed)
+    phase_small_reference(on_card, args.seed)
+    launches, model = phase_main(on_card, args)
+    if args.profile:
+        phase_profile(model, on_card)
+    if not on_card:
+        print("CPU rehearsal passed (plain versions; no result off the "
+              "card)")
+        return 0
+    line = dict(name="paged_decode", route="cuda",
+                source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+                replaces="paddle_tpu/kernels/paged_attention.py:95",
+                launches=launches.get("paged_decode", 0),
+                **kernels["bfloat16"])
+    print(json.dumps({"kernels": [line]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,31 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu``.
+
+The port grows slice by slice beside the JAX package, which stays the
+reference. Its first slice is paged Llama serving: ``DecodeEngine``
+over a block-pool KV cache whose decode attention runs on a
+hand-written CUDA kernel for Hopper (``kernels/csrc/paged_decode.cu``).
+
+Importing this package does no work: it imports no torch, builds no
+kernel, probes no device and allocates nothing. Kernels build on their
+first launch on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+__all__ = ["DEFAULT_DEVICE", "__version__", "seed"]
+
+__version__ = "0.1.0"
+
+#: Device every entry point uses unless the caller names another one.
+#: There is no silent CPU fallback: pass ``device="cpu"`` to run the
+#: plain PyTorch versions of the kernels.
+DEFAULT_DEVICE = "cuda"
+
+
+def seed(value: int, device=DEFAULT_DEVICE):
+    """A ``torch.Generator`` on ``device`` seeded with ``value``.
+
+    The port threads explicit generators through every random draw
+    (model initialisation, sampling) instead of seeding global state."""
+    import torch
+    return torch.Generator(device=device).manual_seed(int(value))

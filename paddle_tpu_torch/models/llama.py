@@ -1,0 +1,486 @@
+"""Llama family in PyTorch: configuration, the stacked-parameter model
+and the serving functions of the paged decode engine.
+
+Counterpart of ``paddle_tpu/models/llama.py``. Parameters are stacked
+over layers (``[L, ...]``) under the reference's keys, so a JAX
+``state_dict`` loads as it is (:mod:`paddle_tpu_torch.convert`). The
+serving functions keep the reference's names and argument order; where
+the reference returns updated KV pools, these update the pools in place
+(the reference donates them to its compiled programs for the same
+effect) and say so.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import DEFAULT_DEVICE
+from ..kernels.paged_attention import paged_decode_attention
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LLAMA_PRESETS",
+           "masked_prefill", "scatter_prefill_kv", "prefix_prefill"]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    # Qwen2-style additive QKV biases
+    attention_bias: bool = False
+    dtype: str = "float32"
+    # mixture of experts (0 experts = dense); the port runs dense models
+    # only, the fields exist so that every reference preset parses
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int = 0
+    moe_num_shared_experts: int = 0
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+
+LLAMA_PRESETS = {
+    "llama3-8b": dict(vocab_size=128256, hidden_size=4096,
+                      intermediate_size=14336, num_hidden_layers=32,
+                      num_attention_heads=32, num_key_value_heads=8,
+                      rope_theta=500000.0),
+    "llama2-7b": dict(vocab_size=32000, hidden_size=4096,
+                      intermediate_size=11008, num_hidden_layers=32,
+                      num_attention_heads=32, num_key_value_heads=32,
+                      rope_theta=10000.0),
+    "tiny": dict(vocab_size=1024, hidden_size=256, intermediate_size=688,
+                 num_hidden_layers=4, num_attention_heads=8,
+                 num_key_value_heads=4, max_position_embeddings=2048),
+    "debug": dict(vocab_size=128, hidden_size=64, intermediate_size=172,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, max_position_embeddings=256),
+    "tiny-moe": dict(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=4, num_attention_heads=8,
+                     num_key_value_heads=4, num_experts=4,
+                     num_experts_per_tok=2, max_position_embeddings=2048),
+    "mixtral-8x7b": dict(vocab_size=32000, hidden_size=4096,
+                         intermediate_size=14336, num_hidden_layers=32,
+                         num_attention_heads=32, num_key_value_heads=8,
+                         rope_theta=1000000.0, num_experts=8,
+                         num_experts_per_tok=2,
+                         moe_intermediate_size=14336,
+                         max_position_embeddings=32768),
+    "deepseek-moe-16b": dict(vocab_size=102400, hidden_size=2048,
+                             intermediate_size=10944,
+                             num_hidden_layers=28,
+                             num_attention_heads=16,
+                             num_key_value_heads=16,
+                             rope_theta=10000.0, num_experts=64,
+                             num_experts_per_tok=6,
+                             moe_intermediate_size=1408,
+                             moe_num_shared_experts=2,
+                             max_position_embeddings=4096),
+    "qwen2-7b": dict(vocab_size=152064, hidden_size=3584,
+                     intermediate_size=18944, num_hidden_layers=28,
+                     num_attention_heads=28, num_key_value_heads=4,
+                     rope_theta=1000000.0, attention_bias=True),
+    "qwen2-0.5b": dict(vocab_size=151936, hidden_size=896,
+                       intermediate_size=4864, num_hidden_layers=24,
+                       num_attention_heads=14, num_key_value_heads=2,
+                       rope_theta=1000000.0, attention_bias=True,
+                       tie_word_embeddings=True),
+    "qwen2-debug": dict(vocab_size=128, hidden_size=64,
+                        intermediate_size=172, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        max_position_embeddings=256, attention_bias=True,
+                        tie_word_embeddings=True),
+    "ernie-4.5-lite": dict(vocab_size=103424, hidden_size=2560,
+                           intermediate_size=12288, num_hidden_layers=28,
+                           num_attention_heads=20, num_key_value_heads=4,
+                           rope_theta=500000.0, num_experts=64,
+                           num_experts_per_tok=6,
+                           moe_intermediate_size=1536,
+                           moe_num_shared_experts=2),
+    "ernie-debug": dict(vocab_size=128, hidden_size=64,
+                        intermediate_size=172, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        max_position_embeddings=256, num_experts=4,
+                        num_experts_per_tok=2, moe_intermediate_size=86,
+                        moe_num_shared_experts=1),
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _rope_cos_sin(positions, theta, head_dim):
+    """cos and sin [b, s, 1, head_dim/2] of the rotary angles at integer
+    ``positions`` [b, s], in fp32. Computed once per forward and shared
+    by every layer (the reference's ``_rope`` recomputes them inside
+    each layer, which XLA folds; eager PyTorch would not)."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    angles = positions[:, :, None].float() * freqs          # [b, s, half]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _rope(x, rope):
+    """Rotary embedding (rotate halves) on [b, s, h, d] with
+    ``rope = _rope_cos_sin(...)``, computed in fp32."""
+    cos, sin = rope
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rms(x, w, eps):
+    """RMS norm with fp32 accumulation and output in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _masked_softmax(s, valid):
+    """Softmax over the last axis where ``valid``; rows with no valid
+    entry give zeros instead of NaN."""
+    s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.where(torch.isfinite(s).any(-1, keepdim=True), p,
+                       torch.zeros((), dtype=p.dtype, device=p.device))
+
+
+def _attention_keymask(q, k, v, key_mask):
+    """Causal GQA attention over [b, s, h, d] with a per-row valid-key
+    mask ``key_mask`` [b, s] (left-padded serving prefill)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qh = q.transpose(1, 2).reshape(B, Hkv, G, S, D)
+    kh = k.transpose(1, 2)
+    vh = v.transpose(1, 2)
+    s = torch.einsum("bngsd,bntd->bngst", qh, kh).float() / (D ** 0.5)
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    valid = causal[None, :, :] & key_mask[:, None, :].bool()
+    p = _masked_softmax(s, valid[:, None, None, :, :])
+    out = torch.einsum("bngst,bntd->bngsd", p.to(q.dtype), vh)
+    return out.reshape(B, H, S, D).transpose(1, 2)
+
+
+def _qkv(cfg, lp, y, rope):
+    """Projections plus rope: q [b, s, h, hd], k and v [b, s, kvh, hd]."""
+    hd = cfg.head_dim
+    h = lp["wq"].shape[-1] // hd
+    kvh = lp["wk"].shape[-1] // hd
+    b, s, _ = y.shape
+    q = y @ lp["wq"]
+    k = y @ lp["wk"]
+    v = y @ lp["wv"]
+    if "bq" in lp:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = _rope(q.reshape(b, s, h, hd), rope)
+    k = _rope(k.reshape(b, s, kvh, hd), rope)
+    return q, k, v.reshape(b, s, kvh, hd)
+
+
+def _mlp(cfg, lp, x):
+    """Residual SwiGLU block."""
+    y = _rms(x, lp["post_ln"], cfg.rms_norm_eps)
+    return x + (F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+
+
+def _decoder_layer(cfg, lp, x, rope, key_mask):
+    """One decoder layer over [b, s, d] with a valid-key mask; returns
+    (x, k, v) with the post-rope K and V for the decode cache."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
+                   rope)
+    attn = _attention_keymask(q, k, v, key_mask)
+    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    return _mlp(cfg, lp, x), k, v
+
+
+def _layer(stacked, i):
+    return {n: w[i] for n, w in stacked.items()}
+
+
+class LlamaForCausalLM(nn.Module):
+    """Stacked-parameter Llama. ``state_dict`` keys: ``layers.<name>``
+    hold the [L, ...] stacks; ``embed_tokens``, ``final_norm`` and
+    ``lm_head`` (absent with tied embeddings) the rest.
+
+    Weights are drawn from ``generator`` (default: seed 0 on
+    ``device``) as the reference draws them: N(0, 0.02) for matrices,
+    ones for norms, zeros for attention biases. On the ``meta`` device
+    they are left undrawn, for a checkpoint to fill."""
+
+    def __init__(self, config: LlamaConfig | str = "tiny", *, dtype=None,
+                 device=DEFAULT_DEVICE, generator=None):
+        super().__init__()
+        if isinstance(config, str):
+            config = LlamaConfig(**LLAMA_PRESETS[config])
+        if config.num_experts > 0:
+            raise NotImplementedError(
+                "mixture-of-experts Llama is not ported yet (ROADMAP.md "
+                "Queue 1, item 5: training path with MoE)")
+        self.config = cfg = config
+        dtype = _DTYPES[cfg.dtype] if dtype is None else dtype
+        if generator is None and torch.device(device).type != "meta":
+            generator = torch.Generator(device=device).manual_seed(0)
+        d, L = cfg.hidden_size, cfg.num_hidden_layers
+        h, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        ff = cfg.intermediate_size
+
+        def mk(shape, init="normal"):
+            t = torch.empty(shape, dtype=dtype, device=device)
+            if t.is_meta:               # shapes only (checkpoint loading)
+                pass
+            elif init == "ones":
+                t.fill_(1.0)
+            elif init == "zeros":
+                t.zero_()
+            else:
+                t.normal_(0.0, 0.02, generator=generator)
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed_tokens = mk((cfg.vocab_size, d))
+        layers = {"wq": mk((L, d, h * hd)), "wk": mk((L, d, kvh * hd)),
+                  "wv": mk((L, d, kvh * hd)), "wo": mk((L, h * hd, d))}
+        if cfg.attention_bias:
+            layers.update(bq=mk((L, h * hd), "zeros"),
+                          bk=mk((L, kvh * hd), "zeros"),
+                          bv=mk((L, kvh * hd), "zeros"))
+        layers.update(input_ln=mk((L, d), "ones"),
+                      post_ln=mk((L, d), "ones"),
+                      w_gate=mk((L, d, ff)), w_up=mk((L, d, ff)),
+                      w_down=mk((L, ff, d)))
+        self.layers = nn.ParameterDict(layers)
+        self.final_norm = mk((d,), "ones")
+        if cfg.tie_word_embeddings:
+            self.register_parameter("lm_head", None)
+        else:
+            self.lm_head = mk((d, cfg.vocab_size))
+
+    def weights(self):
+        """(stacked, embed, final_norm, lm_head) as the serving functions
+        take them; ``lm_head`` is ``embed.T`` with tied embeddings."""
+        stacked = dict(self.layers.items())
+        head = self.embed_tokens.T if self.lm_head is None else self.lm_head
+        return stacked, self.embed_tokens, self.final_norm, head
+
+    @torch.no_grad()
+    def forward(self, input_ids, attention_mask=None):
+        """Logits [b, s, V] for token ids [b, s]; ``attention_mask``
+        [b, s] (1 = real token) excludes pad keys."""
+        stacked, embed, fnorm, head = self.weights()
+        b, s = input_ids.shape
+        key_mask = torch.ones((b, s), dtype=torch.bool,
+                              device=input_ids.device) \
+            if attention_mask is None else attention_mask.bool()
+        positions = torch.arange(s, device=input_ids.device)[None, :] \
+            .expand(b, s)
+        rope = _rope_cos_sin(positions, self.config.rope_theta,
+                             self.config.head_dim)
+        x = embed[input_ids]
+        for i in range(self.config.num_hidden_layers):
+            x, _, _ = _decoder_layer(self.config, _layer(stacked, i), x,
+                                     rope, key_mask)
+        return _rms(x, fnorm, self.config.rms_norm_eps) @ head
+
+
+def _sample(logits, temperature, top_k, generator=None):
+    """Next token per row of ``logits`` [b, V]: argmax when
+    ``temperature`` is 0, else a draw from the softmax of
+    ``logits / temperature`` restricted to the ``top_k`` largest
+    (``top_k`` 0 = all). Draws come from ``generator``."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits.float() / temperature
+    if top_k and top_k > 0:
+        kth = logits.sort(dim=-1).values[:, -top_k][:, None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                             generator=generator)[:, 0]
+
+
+def masked_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
+                   pad_len, last_index=None):
+    """Serving prefill of left-padded ``ids`` [b, s] with per-row
+    ``pad_len`` [b] -> (logits [b, V] fp32 at ``last_index`` (default:
+    the last column), ks, vs [L, b, s, kvh, hd] post-rope K/V)."""
+    b, s0 = ids.shape
+    cols = torch.arange(s0, device=ids.device)[None, :]
+    positions = torch.clamp(cols - pad_len[:, None], min=0)
+    rope = _rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
+    key_mask = cols >= pad_len[:, None]
+    x = embed[ids]
+    ks, vs = [], []
+    for i in range(cfg.num_hidden_layers):
+        x, k, v = _decoder_layer(cfg, _layer(stacked, i), x, rope,
+                                 key_mask)
+        ks.append(k)
+        vs.append(v)
+    x = _rms(x, final_norm, cfg.rms_norm_eps)
+    last = x[:, -1] if last_index is None else x[:, last_index]
+    return (last @ lm_head).float(), torch.stack(ks), torch.stack(vs)
+
+
+def scatter_prefill_kv(kp, vp, ks, vs, table_row, pad, offset=0):
+    """Write ONE row's prefill K/V into the pools IN PLACE. kp/vp
+    [L, N, bs, kvh, hd]; ks/vs [L, 1, sp, kvh, hd] right-aligned with
+    ``pad`` left pads; ``table_row`` [max_blocks]. Token j (j >= pad)
+    lands at context position j - pad + ``offset``. The reference
+    routes pad positions to the NULL page; here they are not written at
+    all, which leaves every page other than the NULL page identical."""
+    bs = kp.shape[2]
+    sp = ks.shape[2]
+    pad = int(pad)
+    cpos = torch.arange(sp - pad, device=kp.device) + int(offset)
+    page = table_row.to(kp.device).long()[cpos // bs]
+    off = cpos % bs
+    kp[:, page, off] = ks[:, 0, pad:].to(kp.dtype)
+    vp[:, page, off] = vs[:, 0, pad:].to(vp.dtype)
+
+
+def _decode_slots(tables, lens, bs):
+    """Where each row's new token goes: (page, offset) through the block
+    table at position ``lens``. The same for every layer of a step."""
+    page = tables.gather(1, (lens // bs)[:, None].long())[:, 0].long()
+    return page, (lens % bs).long()
+
+
+def _paged_decode_layer_step(cfg, lp, x, kp, vp, tables, lens,
+                             attn=paged_decode_attention, rope=None,
+                             slots=None):
+    """One decoder layer for ONE token per row against the paged cache:
+    kp/vp [N, bs, kvh, hd] (this layer's pools, updated IN PLACE),
+    tables [b, max_blocks] int32, lens [b] int32 = tokens already cached
+    (the new token's position). Inactive rows carry all-NULL tables, so
+    their writes land on page 0; on the card those duplicate writes race,
+    which is harmless because no active row reads page 0 within its
+    length. ``attn`` is the attention function (the kernel wrapper by
+    default, or the plain version for comparison); ``rope`` and
+    ``slots`` may be passed precomputed (:func:`_paged_decode_step`
+    shares them across layers)."""
+    hd = cfg.head_dim
+    kvh = lp["wk"].shape[-1] // hd
+    b = x.shape[0]
+    if rope is None:
+        rope = _rope_cos_sin(lens[:, None], cfg.rope_theta, hd)
+    page, off = _decode_slots(tables, lens, kp.shape[1]) \
+        if slots is None else slots
+    q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
+                   rope)
+    kp[page, off] = k[:, 0].to(kp.dtype)
+    vp[page, off] = v[:, 0].to(vp.dtype)
+    qg = q[:, 0].reshape(b, kvh, -1, hd).contiguous()
+    out = attn(qg, kp, vp, tables, lens + 1)
+    x = x + out.to(x.dtype).reshape(b, 1, -1) @ lp["wo"]
+    return _mlp(cfg, lp, x)
+
+
+def _paged_decode_step(cfg, stacked, embed, final_norm, lm_head, token,
+                       pages_k, pages_v, tables, lens,
+                       attn=paged_decode_attention):
+    """Paged single-token step: token ids [b], pools [L, N, bs, kvh, hd]
+    (updated IN PLACE), tables [b, max_blocks], lens [b] -> logits
+    [b, V] fp32."""
+    x = embed[token][:, None, :]
+    rope = _rope_cos_sin(lens[:, None], cfg.rope_theta, cfg.head_dim)
+    slots = _decode_slots(tables, lens, pages_k.shape[2])
+    for i in range(cfg.num_hidden_layers):
+        x = _paged_decode_layer_step(cfg, _layer(stacked, i), x,
+                                     pages_k[i], pages_v[i], tables, lens,
+                                     attn=attn, rope=rope, slots=slots)
+    x = _rms(x, final_norm, cfg.rms_norm_eps)
+    return (x[:, 0] @ lm_head).float()
+
+
+def _attention_prefix(q, k, v, key_mask, pk, pv, prefix_mask):
+    """Causal window attention over the uncached tail (``key_mask``
+    marks its real positions) PLUS the row's cached prefix pk/pv
+    [b, sp, kvh, hd] (``prefix_mask`` [b, sp] marks valid positions),
+    which every window query sees."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qh = q.transpose(1, 2).reshape(B, Hkv, G, S, D)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    pkh, pvh = pk.transpose(1, 2), pv.transpose(1, 2)
+    sw = torch.einsum("bngsd,bntd->bngst", qh, kh).float() / (D ** 0.5)
+    sp = torch.einsum("bngsd,bntd->bngst", qh, pkh).float() / (D ** 0.5)
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    valid_w = causal[None, :, :] & key_mask[:, None, :].bool()
+    valid_p = prefix_mask[:, None, :].bool().expand(B, S, -1)
+    s = torch.cat([sp, sw], dim=-1)          # prefix first: chrono order
+    valid = torch.cat([valid_p, valid_w], dim=-1)
+    p = _masked_softmax(s, valid[:, None, None, :, :])
+    vall = torch.cat([pvh, vh], dim=2)
+    out = torch.einsum("bngst,bntd->bngsd", p.to(q.dtype), vall)
+    return out.reshape(B, H, S, D).transpose(1, 2)
+
+
+def _prefix_decoder_layer(cfg, lp, x, rope, key_mask, pk, pv,
+                          prefix_mask):
+    """One decoder layer over an uncached tail window attending to a
+    cached paged prefix; returns (x, k, v) with the tail's K/V."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
+                   rope)
+    attn = _attention_prefix(q, k, v, key_mask, pk, pv, prefix_mask)
+    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    return _mlp(cfg, lp, x), k, v
+
+
+def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
+                   pad_len, prefix_len, kp, vp, table_row,
+                   last_index=None):
+    """Prefill of an uncached TAIL over a prefix already in the pools.
+
+    ``ids`` [1, sc]: tail tokens right-aligned (``pad_len`` [1] left
+    pads); ``prefix_len`` [1]: cached tokens reachable through
+    ``table_row`` [max_blocks]. Rope positions start at ``prefix_len``;
+    each layer gathers its prefix K/V through the table, the tail
+    attends over prefix + causal window, and the tail's K/V are
+    scattered into kp/vp [L, N, bs, kvh, hd] IN PLACE at
+    ``offset=prefix_len``. Returns the last real position's logits
+    [1, V] fp32."""
+    b, sc = ids.shape
+    bs = kp.shape[2]
+    mb = table_row.shape[0]
+    cols = torch.arange(sc, device=ids.device)[None, :]
+    positions = torch.clamp(cols - pad_len[:, None], min=0) \
+        + prefix_len[:, None]
+    rope = _rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
+    key_mask = cols >= pad_len[:, None]
+    prefix_mask = (torch.arange(mb * bs, device=ids.device)[None, :]
+                   < prefix_len[:, None])
+    rows = table_row.long()
+    x = embed[ids]
+    ks, vs = [], []
+    for i in range(cfg.num_hidden_layers):
+        pk = kp[i][rows].reshape(1, mb * bs, *kp.shape[3:]).to(x.dtype)
+        pv = vp[i][rows].reshape(1, mb * bs, *vp.shape[3:]).to(x.dtype)
+        x, k, v = _prefix_decoder_layer(cfg, _layer(stacked, i), x,
+                                        rope, key_mask, pk, pv,
+                                        prefix_mask)
+        ks.append(k)
+        vs.append(v)
+    x = _rms(x, final_norm, cfg.rms_norm_eps)
+    last = x[:, -1] if last_index is None else x[:, last_index]
+    scatter_prefill_kv(kp, vp, torch.stack(ks), torch.stack(vs), table_row,
+                       int(pad_len[0]), offset=int(prefix_len[0]))
+    return (last @ lm_head).float()
