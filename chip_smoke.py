@@ -14,17 +14,29 @@ Phases, each printed as it ends:
      and spill counts;
   2. each kernel against its plain version at the shapes the main path
      gives it: max-abs error, and its time beside the plain version's,
-     one PyTorch library call's and the card's bound for the same work;
+     one PyTorch library call's and the card's bound for the same work
+     (paged_decode at bs 16; paged_decode_int8 at bs 16 and 32, rows of
+     1, 1999, 512 and 0 keys, a poisoned NULL page);
   3. a small input served on the card and on the CPU with the same
      weights: identical greedy tokens;
-  4. the main path: llama3-8b (32 layers, bf16, random weights from
+  4. fp KV serving: llama3-8b (32 layers, bf16, random weights from
      --seed) behind DecodeEngine(capacity=4, block_size=16) serves 7
      requests of 32-512 prompt tokens and 16 new tokens each, two of
      them sharing a 3-page prompt prefix. Launch counts are zeroed just
-     before and read just after; every kernel must have launched, the
-     paged-decode kernel once per layer and decode step. The first
-     decode step is replayed with the kernel and with the plain
-     attention: logits within 5e-2 and the same argmax.
+     before and read just after; the paged-decode kernel must have
+     launched once per layer and decode step. The first decode step is
+     replayed with the kernel and with the plain attention;
+  5. int8 KV with chunked prefill on the same model:
+     DecodeEngine(s_max=1600, kv_dtype="int8", chunked_prefill=True,
+     prefill_chunk=128) serves 8 requests of 64-1536 prompt tokens fed
+     in by 128-token chunks beside the running decodes. Counts zeroed
+     just before and read just after: the int8 kernel launched once per
+     layer and decode step, the fp kernel never. One decode step of a
+     1536-token row is replayed with every layer's kernel output held
+     against the plain int8 version;
+  6. speculative decoding on the same model (int8 KV, chunked prefill):
+     4 requests of repeating prompts, 32 new tokens each; verify steps
+     are prefills, so no paged-decode kernel launches.
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -34,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -184,6 +197,124 @@ def phase_kernels(on_card, seed):
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=lib_ms)
+    return out
+
+
+# -- phase 2: int8 paged decode kernel against its plain version -------------
+
+INT8_TOL = 1e-4     # f32 output of order 1: summation order and expf
+
+
+def paged_int8_case(dtype, device, seed, bs):
+    """The int8 kernel at llama3-8b decode shapes: B=4, kvh=8, G=4,
+    hd=128; rows of 1, 1999, 512 and 0 keys over scattered pages; codes
+    in [-127, 127] and positive per-(page, head) scales near amax/127 of
+    unit values. Page 0, the NULL page, holds +-127 codes at scale 1e3:
+    a read of it within a row's length would show."""
+    B, kvh, G, hd = 4, 8, 4, 128
+    lens = np.asarray([1, 1999, 512, 0], np.int32)
+    mb = -(-int(lens.max()) // bs)
+    n_pages = 1 + sum(-(-int(n) // bs) for n in lens) + 64
+    rng = np.random.RandomState(seed)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((B, mb), np.int32)
+    for b in range(B):
+        for j in range(-(-int(lens[b]) // bs)):
+            table[b, j] = free.pop()
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, kvh, G, hd), generator=g, device=device).to(dtype)
+    kp, vp = (torch.randint(-127, 128, (n_pages, bs, kvh, hd), generator=g,
+                            device=device, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = ((torch.rand((n_pages, kvh), generator=g, device=device)
+               + 0.5) * (3.0 / 127) for _ in range(2))
+    kp[0], vp[0] = 127, -127
+    ks[0], vs[0] = 1e3, 1e3
+    return (q, kp, vp, torch.as_tensor(table, device=device),
+            torch.as_tensor(lens, device=device)), (ks, vs)
+
+
+def paged_int8_bound_ms(q, table, lens, bs):
+    """Least time for the work: the valid keys' and values' codes read
+    once, their pages' two scales, q, table and lengths read, out
+    written; 4 flops per (key, query head, dim) at q's type's rate."""
+    B, kvh, G, hd = q.shape
+    n = int(lens.sum())
+    pages = sum(-(-int(x) // bs) for x in lens.tolist())
+    elt = q.element_size()
+    nbytes = (2 * n * kvh * hd + 2 * pages * kvh * 4 + q.numel() * elt
+              + q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
+    flops = 4 * n * kvh * G * hd
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_FLOPS[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def sdpa_int8_yardstick(q, kp, vp, table, lens, kv_scales):
+    """The library route for the same function: gather and dequantize
+    the pages, then scaled_dot_product_attention with a key mask in q's
+    type. Timed only; the port never calls it."""
+    from paddle_tpu_torch.kernels.paged_attention import gather_pages_dequant
+    B, kvh, G, hd = q.shape
+    ck = gather_pages_dequant(kp, table, kv_scales[0]).to(q.dtype)
+    cv = gather_pages_dequant(vp, table, kv_scales[1]).to(q.dtype)
+    mask = (torch.arange(ck.shape[1], device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, kvh * G, 1, hd), ck.transpose(1, 2),
+        cv.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    return out.reshape(B, kvh, G, hd)
+
+
+def phase_kernels_int8(on_card, seed):
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    device = "cuda" if on_card else "cpu"
+    out = {}
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
+        if on_card else None
+    flush = (lambda: flush_buf.zero_()) if on_card else None
+    for bs in (16, 32):
+        for dtype in (torch.bfloat16, torch.float32):
+            args, kv = paged_int8_case(dtype, device, seed, bs)
+            got = pa.paged_decode_attention(*args, kv_scales=kv)
+            want = pa.paged_attn_reference_int8(*args, kv)
+            if on_card:
+                torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and got.shape == want.shape,
+                  "int8 kernel output is fp32 of q's shape")
+            check(bool(torch.isfinite(got).all()),
+                  "int8 kernel output is finite")
+            check(bool((got[3] == 0).all()), "length-0 row gives zeros")
+            err = float((got - want).abs().max())
+            name = str(dtype).replace("torch.", "")
+            say("kernel", name="paged_decode_int8", dtype=name, bs=bs,
+                max_abs_err=err, tol=INT8_TOL,
+                max_abs_out=float(want.abs().max()))
+            check(err <= INT8_TOL,
+                  f"paged_decode_int8 {name} bs={bs} max-abs {err} <= "
+                  f"{INT8_TOL}")
+            if not on_card:
+                continue
+            ms = cuda_ms(lambda: pa.paged_decode_attention(*args,
+                                                           kv_scales=kv),
+                         flush=flush)
+            plain_ms = cuda_ms(lambda: pa.paged_attn_reference_int8(*args,
+                                                                    kv),
+                               flush=flush)
+            lib_ms = cuda_ms(lambda: sdpa_int8_yardstick(*args, kv),
+                             flush=flush)
+            lib = sdpa_int8_yardstick(*args, kv)
+            lib_err = float((lib[:3].float() - want[:3]).abs().max())
+            bound_ms, bound_by = paged_int8_bound_ms(args[0], args[3],
+                                                     args[4], bs)
+            say("kernel", name="paged_decode_int8", dtype=name, bs=bs,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_max_abs_err=lib_err, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms)
+            out[(name, bs)] = dict(max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=lib_ms)
     return out
 
 
@@ -409,15 +540,241 @@ def replay_first_step(cfg, model, snap, device):
     del w32
 
 
-def phase_profile(model, on_card):
-    """One decode_once of 4 rows (128-token prompts) under
-    torch.profiler: host wall against summed device kernel time, and the
-    kernels that take the most device time. Launches here come after
-    the main path's counts were read."""
+# -- phase 5: int8 KV with chunked prefill ------------------------------------
+
+def int8_requests(vocab, seed):
+    """8 requests of 16 new tokens: prompts of 1536, 1024, 512, 384, 256
+    and 96 tokens, and two sharing a 48-token (3-page) prefix followed
+    by 16 and 40 of their own; the second comes in a second wave, after
+    the first has retired and published the prefix."""
+    rng = np.random.RandomState(seed + 1)
+    tok = lambda n: rng.randint(1, vocab, (n,)).astype(np.int32)
+    shared = tok(48)
+    wave1 = [(np.concatenate([shared, tok(16)]), 16)] + [
+        (tok(n), 16) for n in (1536, 1024, 512, 384, 256, 96)]
+    wave2 = [(np.concatenate([shared, tok(40)]), 16)]
+    return [wave1, wave2]
+
+
+def phase_int8_chunked(on_card, model, args):
+    """The int8 + chunked-prefill engine on the main path's model. The
+    engine's decode chunks and prefill chunks are timed by wrapping
+    them; the first decode chunk in which a row of at least 1024 tokens
+    decodes while other rows are mid-prefill is recorded for the
+    replay."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    cfg = model.config
+    eng = DecodeEngine(model, capacity=4, s_max=1600, chunk=8,
+                       block_size=16, kv_dtype="int8",
+                       chunked_prefill=True, prefill_chunk=128)
+    timing = {"decode_s": 0.0, "chunk_s": 0.0}
+    snap = {}
+    decode_chunk, prefill_chunk_row = eng._decode_chunk, \
+        eng._prefill_chunk_row
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed_decode_chunk():
+        ready = [i for i, r in enumerate(eng._rows)
+                 if r is not None and "pf_seq" not in r]
+        record = not snap and max(int(eng._lens[i]) for i in ready) \
+            >= 1024 and any(r is not None and "pf_seq" in r
+                            for r in eng._rows)
+        if record:
+            snap.update(kp=eng._kp.clone(), vp=eng._vp.clone(),
+                        ks=eng._kscale.clone(), vs=eng._vscale.clone(),
+                        tables=eng._tables.copy(), lens=eng._lens.copy(),
+                        tok=eng._tok.copy(), lanes=ready)
+        t = time.perf_counter()
+        toks = decode_chunk()               # ends in a fetch: synced
+        timing["decode_s"] += time.perf_counter() - t
+        if record:
+            snap["emitted"] = [int(toks[0, i]) for i in ready]
+        return toks
+
+    def timed_prefill_chunk_row(*a):
+        sync()
+        t = time.perf_counter()
+        prefill_chunk_row(*a)
+        sync()
+        timing["chunk_s"] += time.perf_counter() - t
+
+    eng._decode_chunk = timed_decode_chunk
+    eng._prefill_chunk_row = timed_prefill_chunk_row
+    waves = int8_requests(cfg.vocab_size, args.seed)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reqs, mixed_steps = [], 0
+    pa.launch_counts.clear()
+    for wave in waves:
+        reqs += [eng.submit(p, mn) for p, mn in wave]
+        for _ in range(400):
+            eng.admit([])
+            before = eng.stats()
+            eng.decode_once()
+            after = eng.stats()
+            mixed_steps += (after["prefill_chunks"] > before["prefill_chunks"]
+                            and after["device_steps"]
+                            > before["device_steps"])
+            if eng.idle():
+                break
+        else:
+            raise RuntimeError("int8 engine did not drain")
+    sync()
+    launches = dict(pa.launch_counts)
+    st = eng.stats()
+    for r in reqs:
+        check(r.error is None, f"request failed: {r.error!r}")
+        res = r.wait(timeout=1)
+        check(res.size == r.ids.size + r.max_new
+              and bool(((res >= 0) & (res < cfg.vocab_size)).all()),
+              "each request returns prompt + its 16 tokens")
+    expect = cfg.num_hidden_layers * st["device_steps"]
+    if on_card:
+        check(launches.get("paged_decode_int8", 0) == expect,
+              f"paged_decode_int8 launched "
+              f"{launches.get('paged_decode_int8', 0)} times, expected "
+              f"layers x decode steps = {expect}")
+        check(launches.get("paged_decode", 0) == 0,
+              "the fp kernel did not launch on int8 pools")
+    check(st["prefill_chunks"] >= 12 + 8 + 4,
+          f"long prompts went in by chunks ({st['prefill_chunks']})")
+    check(mixed_steps >= 1, "a step ran prefill chunks and decode lanes")
+    check(st["prefix_hit_tokens"] >= 48,
+          f"the shared prefix was served from the cache "
+          f"({st['prefix_hit_tokens']} tokens)")
+    check(bool(snap), "a long row decoded beside mid-prefill rows")
+    int8_bytes = sum(a.numel() * a.element_size()
+                     for a in (eng._kp, eng._vp, eng._kscale, eng._vscale))
+    fp_bytes = 2 * eng._kp.numel() * model.embed_tokens.element_size()
+    decode_tokens = sum(r.max_new - 1 for r in reqs)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say("int8", requests=len(reqs), retired=st["retired"],
+        decode_steps=st["device_steps"], prefill_chunks=st["prefill_chunks"],
+        mixed_steps=mixed_steps, prefix_hit_tokens=st["prefix_hit_tokens"],
+        launches=json.dumps(launches), decode_s=round(timing["decode_s"], 4),
+        decode_tokens_per_s=round(decode_tokens / timing["decode_s"], 2),
+        prefill_chunk_s=round(timing["chunk_s"], 4),
+        pool_bytes_int8=int8_bytes, pool_bytes_fp=fp_bytes,
+        peak_mem_gib=round(peak / 2 ** 30, 3))
+    del eng
+    replay_int8_step(cfg, model, snap, on_card)
+    return launches
+
+
+def replay_int8_step(cfg, model, snap, on_card):
+    """Replay the recorded decode step on copies of its int8 pools and
+    scales: every layer's kernel output is held against the plain int8
+    version on the same inputs (<= INT8_TOL), and the replay's argmax
+    equals the tokens the engine emitted at that step. The argmax of a
+    replay through the plain version alone is printed beside it: bf16
+    rounding flips grow over 32 layers of random weights (see phase
+    4), so it is not held."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import llama as ll
+    device = "cuda" if on_card else "cpu"
+    tok = torch.as_tensor(snap["tok"], device=device).long()
+    tables = torch.as_tensor(snap["tables"], device=device)
+    lens = torch.as_tensor(snap["lens"], device=device)
+    lanes = snap["lanes"]
+    errs = []
+
+    def kernel_checked(*a, kv_scales):
+        out = pa.paged_decode_attention(*a, kv_scales=kv_scales)
+        errs.append(float((out - pa.paged_attn_reference_int8(
+            *a, kv_scales)).abs().max()))
+        return out
+
+    def plain(*a, kv_scales):
+        return pa.paged_attn_reference_int8(*a, kv_scales)
+
+    def step(attn):
+        with torch.no_grad():
+            return ll._paged_decode_step(
+                cfg, *model.weights(), tok, snap["kp"].clone(),
+                snap["vp"].clone(), tables, lens, snap["ks"].clone(),
+                snap["vs"].clone(), attn=attn)[lanes]
+
+    kern = step(kernel_checked)
+    plain_logits = step(plain)
+    got = kern.argmax(-1).tolist()
+    say("int8", replay_lanes=lanes,
+        replay_lens=[int(snap["lens"][i]) for i in lanes],
+        layers_checked=len(errs), attention_max_abs_err=max(errs),
+        engine_tokens=snap["emitted"], replay_argmax=got,
+        plain_replay_argmax=plain_logits.argmax(-1).tolist(),
+        plain_logits_max_abs_diff=float((kern - plain_logits).abs().max()))
+    check(bool(torch.isfinite(kern).all()), "replayed logits are finite")
+    check(len(errs) == cfg.num_hidden_layers and max(errs) <= INT8_TOL,
+          "every layer's int8 attention agrees with the plain version")
+    check(got == snap["emitted"], "engine's tokens = replay argmax")
+
+
+# -- phase 6: speculative decoding --------------------------------------------
+
+def phase_spec(on_card, model, args):
+    """Speculative decoding at the main path's width: 4 requests whose
+    prompts repeat a 32-token pattern four times, 32 new tokens each.
+    Every request completes; verify steps are prefills, so no
+    paged-decode kernel launches. (With random weights the drafter
+    finds an n-gram to copy only where the model's own continuation
+    repeats its context, which a vocabulary of 128256 makes rare; the
+    draft and accept path is held on the CPU by the parity tests.)"""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    cfg = model.config
+    rng = np.random.RandomState(args.seed + 2)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, (32,)), 4).astype(
+        np.int32) for _ in range(4)]
+    eng = DecodeEngine(model, capacity=4, s_max=256, chunk=8,
+                       block_size=16, kv_dtype="int8", chunked_prefill=True,
+                       prefill_chunk=128, spec_decode=True,
+                       spec_max_draft=4)
+    pa.launch_counts.clear()
+    reqs = [eng.submit(p, 32) for p in prompts]
+    t = time.perf_counter()
+    for _ in range(400):
+        eng.admit([])
+        eng.decode_once()
+        if eng.idle():
+            break
+    else:
+        raise RuntimeError("speculative engine did not drain")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(pa.launch_counts)
+    st = eng.stats()
+    for r in reqs:
+        check(r.error is None, f"request failed: {r.error!r}")
+        check(r.wait(timeout=1).size == r.ids.size + 32,
+              "each request returns prompt + 32 tokens")
+    check(sum(launches.values()) == 0,
+          f"verify steps are prefills: no paged-decode launch "
+          f"({launches})")
+    spec = st["spec"]
+    check(spec["verify_steps"] == st["device_steps"],
+          "every engine step was a verify step")
+    say("spec", requests=len(reqs), prompt_tokens=int(prompts[0].size),
+        verify_steps=spec["verify_steps"], proposed=spec["proposed"],
+        accepted=spec["accepted"], accept_rate=round(spec["accept_rate"], 4),
+        tokens_per_step=round(spec["tokens_per_step"], 4),
+        prefill_chunks=st["prefill_chunks"], wall_s=round(wall, 4),
+        tokens_per_s=round(sum(r.max_new for r in reqs) / wall, 2))
+
+
+def phase_profile(model, on_card, kv_dtype):
+    """One decode_once of 4 rows (128-token prompts) with ``kv_dtype``
+    pools under torch.profiler: host wall against summed device kernel
+    time, and the kernels that take the most device time. Launches here
+    come after the serving phases' counts were read."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import DecodeEngine
     eng = DecodeEngine(model, capacity=4, s_max=640, chunk=8,
-                       block_size=16)
+                       block_size=16, kv_dtype=kv_dtype)
     rng = np.random.RandomState(1)
     for _ in range(4):
         eng.submit(rng.randint(1, model.config.vocab_size, (128,)), 24)
@@ -433,13 +790,14 @@ def phase_profile(model, on_card):
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in kernels)
     n = sum(e.count for e in kernels)
-    say("profile", decode_once_wall_ms=round(wall * 1e3, 3),
+    say("profile", kv_dtype=kv_dtype,
+        decode_once_wall_ms=round(wall * 1e3, 3),
         device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
-        device_busy_share=round(dev_us / 1e6 / wall, 4),
+        device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
         steps=eng.chunk)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        say("profile", kernel=e.key[:60].replace(" ", "_"), count=e.count,
-            device_ms=round(e.self_device_time_total / 1e3, 3))
+        say("profile", kv_dtype=kv_dtype, kernel=e.key[:60].replace(" ", "_"),
+            count=e.count, device_ms=round(e.self_device_time_total / 1e3, 3))
 
 
 def main():
@@ -448,7 +806,8 @@ def main():
                     help="rehearse on the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile one decode_once")
+                    help="after the serving phases, profile one "
+                         "decode_once with fp and with int8 pools")
     args = ap.parse_args()
     args.preset = "debug" if args.cpu else "llama3-8b"
     on_card = not args.cpu
@@ -462,28 +821,44 @@ def main():
         kind = torch.cuda.get_device_name(0)
         say("card", kind=kind, count=torch.cuda.device_count(),
             torch=torch.__version__, cuda=torch.version.cuda)
+        names = ["paged_decode", "paged_decode_int8"]
         t0 = time.perf_counter()
-        _build.build_all(["paged_decode"])
-        say("build", kernels="paged_decode",
+        _build.build_all(names)
+        say("build", kernels=",".join(names),
             seconds=round(time.perf_counter() - t0, 3))
-        for line in _build.build_log("paged_decode").splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas: " + line.strip().split("ptxas info    : ")[-1])
+        for name in names:
+            for line in _build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: "
+                          + line.strip().split("ptxas info    : ")[-1])
     kernels = phase_kernels(on_card, args.seed)
+    kernels_int8 = phase_kernels_int8(on_card, args.seed)
     phase_small_reference(on_card, args.seed)
     launches, model = phase_main(on_card, args)
+    gc.collect()                # phase 4's engine and replay copies
+    if on_card:
+        torch.cuda.empty_cache()
+    launches_int8 = phase_int8_chunked(on_card, model, args)
+    phase_spec(on_card, model, args)
     if args.profile:
-        phase_profile(model, on_card)
+        for kv_dtype in ("fp", "int8"):
+            phase_profile(model, on_card, kv_dtype)
     if not on_card:
         print("CPU rehearsal passed (plain versions; no result off the "
               "card)")
         return 0
-    line = dict(name="paged_decode", route="cuda",
-                source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
-                replaces="paddle_tpu/kernels/paged_attention.py:95",
-                launches=launches.get("paged_decode", 0),
-                **kernels["bfloat16"])
-    print(json.dumps({"kernels": [line]}), flush=True)
+    lines = [dict(name="paged_decode", route="cuda",
+                  source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+                  replaces="paddle_tpu/kernels/paged_attention.py:95",
+                  launches=launches.get("paged_decode", 0),
+                  **kernels["bfloat16"]),
+             dict(name="paged_decode_int8", route="cuda",
+                  source="paddle_tpu_torch/kernels/csrc/"
+                         "paged_decode_int8.cu",
+                  replaces="paddle_tpu/kernels/paged_attention.py:186",
+                  launches=launches_int8.get("paged_decode_int8", 0),
+                  **kernels_int8[("bfloat16", 16)])]
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,10 @@ references with :meth:`incref` and drop them with :meth:`decref`, and a
 page returns to the LIFO free list only when its last reader lets go.
 Double frees, foreign ids and unilateral frees of shared pages raise:
 each would alias live KV history.
+
+An engine with int8 pools sets ``track_allocations``: every page handed
+out is logged until :meth:`drain_allocated`, so the engine can reset a
+recycled page's per-(page, kv head) scale before its next write.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ class BlockAllocator:
         self.high_watermark = 0         # max pages in use at once
         self.total_allocated = 0        # cumulative pages handed out
         self.total_freed = 0            # cumulative pages returned
+        # int8 pools: log hand-outs for drain_allocated()
+        self.track_allocations = False
+        self._handed_out: list[int] = []
 
     @property
     def capacity(self) -> int:
@@ -77,9 +84,22 @@ class BlockAllocator:
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._rc[p] = 1
+        if self.track_allocations:
+            self._handed_out.extend(pages)
         self.total_allocated += n
         self.high_watermark = max(self.high_watermark, len(self._rc))
         return pages
+
+    def drain_allocated(self) -> list[int]:
+        """Pages handed out since the last drain. A recycled page still
+        carries its previous tenant's running-max scale, which only
+        grows and would coarsen every row quantized into the page; an
+        int8 engine sets ``track_allocations`` and drains this list
+        before each call that writes KV, resetting those scales to the
+        floor. With tracking off the list stays empty."""
+        out = self._handed_out
+        self._handed_out = []
+        return out
 
     def incref(self, page: int) -> None:
         """A new reader maps an allocated page (prefix hit)."""

@@ -4,7 +4,8 @@ queue of requests that hold no slot yet, and the per-step token budget.
 Ordering is (priority desc, arrival asc). A preempted request re-enters
 with its original arrival stamp, so preemption never costs it its FCFS
 place. Page charging and the preemption policy live in the engine; the
-scheduler answers "who goes next".
+scheduler answers "who goes next", and under chunked prefill which
+prompt chunks a step's token budget funds.
 """
 
 from __future__ import annotations
@@ -77,3 +78,23 @@ class RequestScheduler:
     def pending_tokens(self) -> int:
         """Queued prompt tokens not yet prefilled."""
         return sum(e[2].ids.reshape(-1).size for e in self._heap)
+
+    # -- per-step token budget (chunked prefill) -----------------------------
+    def _prefill_key(self, req):
+        """Chunk-funding order: priority desc, arrival asc, the order
+        admission itself uses."""
+        return (-int(getattr(req, "priority", 0) or 0), req._sched_seq)
+
+    def plan_prefill(self, budget: StepBudget, candidates) -> list:
+        """Fund whole prefill chunks out of ``budget``: the candidate
+        ``(request, chunk_tokens)`` pairs in :meth:`_prefill_key` order,
+        stopping at the first chunk that does not fit, so a later small
+        chunk never overtakes a starved earlier one. Returns the funded
+        pairs in order."""
+        funded = []
+        for req, tokens in sorted(candidates,
+                                  key=lambda c: self._prefill_key(c[0])):
+            if not budget.take(tokens):
+                break
+            funded.append((req, tokens))
+        return funded

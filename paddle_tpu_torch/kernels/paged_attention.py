@@ -14,8 +14,14 @@ the table:
 - seq_lens: [B] int32 valid keys per row
 - returns [B, kvh, G, hd] float32
 
-:func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` for
-CUDA tensors and runs :func:`paged_attn_reference` for CPU tensors.
+int8 pools hold codes with one float32 scale per (page, kv head),
+``kv_scales = (kscale, vscale)`` of shape [N, kvh]; a key of page ``p``
+and kv head ``h`` is ``code * kscale[p, h]``.
+
+:func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (or
+``csrc/paged_decode_int8.cu`` with ``kv_scales``) for CUDA tensors and
+runs :func:`paged_attn_reference` (:func:`paged_attn_reference_int8`)
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,16 +32,17 @@ import ctypes
 from . import _build
 
 __all__ = ["NULL_PAGE", "KV_SCALE_EPS", "launch_counts",
-           "paged_attn_reference", "paged_decode_attention",
-           "check_kernel_args", "KERNEL_HEAD_DIMS", "KERNEL_BLOCK_SIZES",
-           "KERNEL_MAX_GROUP"]
+           "paged_attn_reference", "paged_attn_reference_int8",
+           "int8_block_update", "gather_pages_dequant",
+           "paged_decode_attention", "check_kernel_args",
+           "KERNEL_HEAD_DIMS", "KERNEL_BLOCK_SIZES", "KERNEL_MAX_GROUP"]
 
 #: page id 0 is never allocated: padded block-table entries and inactive
 #: rows read and write it, so every step has fixed shapes.
 NULL_PAGE = 0
 
-#: floor for per-(page, kv head) int8 scales (int8 KV is not ported yet;
-#: kept beside NULL_PAGE as in the reference module).
+#: floor of the per-(page, kv head) int8 scales: a fresh or recycled
+#: page starts here, so its first token sets the scale to amax / 127.
 KV_SCALE_EPS = 1e-8
 
 #: launches of each kernel of this module, by kernel name. A wrapper
@@ -48,6 +55,10 @@ KERNEL_BLOCK_SIZES = (8, 16, 32)
 KERNEL_MAX_GROUP = 8
 
 _KERNEL = "paged_decode"
+_KERNEL_INT8 = "paged_decode_int8"
+
+#: the finite "minus infinity" of the online softmax, as in the kernels
+_NEG_INF = -1e30
 
 
 def paged_attn_reference(q, k_pages, v_pages, block_table, seq_lens):
@@ -72,10 +83,84 @@ def paged_attn_reference(q, k_pages, v_pages, block_table, seq_lens):
     return torch.einsum("bngt,btnd->bngd", p, cv.float())
 
 
-def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens):
+def int8_block_update(q, kc, vc, ks, vs, m, l, acc, k_ids, n, sm_scale):
+    """ONE page of the int8 online softmax, the reference's
+    ``_int8_block_update``: dequantize the page's codes with their
+    scales, then fold the page into the running (m, l, acc).
+
+    q [..., G, hd] f32; kc/vc [..., bs, hd] int8 codes; ks/vs [...]
+    f32 scales; m, l [..., G]; acc [..., G, hd]; k_ids [..., G, bs]
+    absolute key positions and n [..., 1, 1] row lengths (any shapes
+    that broadcast so). The leading dims may be empty (one cell, as in
+    the reference) or (row, kv head) to fold one page of every cell."""
+    import torch
+    k = kc.float() * ks[..., None, None]
+    v = vc.float() * vs[..., None, None]
+    s = (q @ k.transpose(-1, -2)) * sm_scale                # [..., G, bs]
+    valid = k_ids < n
+    s = torch.where(valid, s, _NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    p = torch.where(valid, p, 0.0)
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + p @ v
+    return m_new, l, acc
+
+
+def paged_attn_reference_int8(q, k_pages, v_pages, block_table, seq_lens,
+                              kv_scales):
+    """The plain version of the int8 kernel and the math of the
+    reference's ``_paged_attn_reference_int8``: a block-looped online
+    softmax that walks the pages in order through
+    :func:`int8_block_update`, one page of every (row, kv head) per
+    step. A row that has run out of pages sees only masked keys, which
+    leave its state exactly as it was, so the rows walk together. A row
+    of length 0 gives zeros."""
+    import torch
+    kscale, vscale = (s.float() for s in kv_scales)
+    B, kvh, G, hd = q.shape
+    mb = block_table.shape[1]
+    bs = k_pages.shape[1]
+    dev = q.device
+    lens = seq_lens.to(dev).long()
+    n_blk = min(mb, -(-int(lens.max()) // bs)) if B else 0
+    qf = q.float()
+    m = torch.full((B, kvh, G), _NEG_INF, device=dev)
+    l = torch.zeros((B, kvh, G), device=dev)
+    acc = torch.zeros((B, kvh, G, hd), device=dev)
+    n = lens[:, None, None, None]
+    slots = torch.arange(bs, device=dev)
+    for j in range(n_blk):
+        page = block_table[:, j].to(dev).long()
+        kc = k_pages[page].transpose(1, 2)               # [B, kvh, bs, hd]
+        vc = v_pages[page].transpose(1, 2)
+        k_ids = (j * bs + slots).expand(B, kvh, G, bs)
+        m, l, acc = int8_block_update(qf, kc, vc, kscale[page],
+                                      vscale[page], m, l, acc, k_ids, n,
+                                      1.0 / (hd ** 0.5))
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def gather_pages_dequant(pages, block_table, scales):
+    """Gather a row's int8 code pages and their per-(page, kv head)
+    scales, dequantized: pages [N, bs, kvh, hd] int8, block_table
+    [B, max_blocks], scales [N, kvh] f32 -> [B, max_blocks*bs, kvh, hd]
+    f32. The NULL-page tail dequantizes with page 0's scale; the row's
+    length masks it downstream."""
+    B, mb = block_table.shape
+    flat = block_table.reshape(-1).long()
+    g = pages[flat].float() * scales[flat][:, None, :, None].float()
+    return g.reshape(B, mb * pages.shape[1], *pages.shape[2:])
+
+
+def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
+                      kv_scales=None):
     """Raise ``ValueError`` unless the CUDA kernel takes these
-    arguments: matching float types, the shapes below, contiguous
-    16-byte-aligned data, int32 table and lengths, one device."""
+    arguments: the shapes below, contiguous 16-byte-aligned data, int32
+    table and lengths, one device; q in bf16, fp16 or fp32 with pools of
+    q's type, or, with ``kv_scales``, int8 pools and float32 scales
+    [N, kvh] (the int8 kernel)."""
     import torch
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q must be [B, kvh, G, hd] and pages "
@@ -91,9 +176,18 @@ def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens):
                          f"kvh={kvh}, hd={hd}")
     if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"dtype {q.dtype} not supported")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError(f"q, k_pages, v_pages must share one dtype; got "
-                         f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    pool_dtype = q.dtype if kv_scales is None else torch.int8
+    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
+        raise ValueError(f"pools must be {pool_dtype} for q of {q.dtype}; "
+                         f"got {k_pages.dtype}, {v_pages.dtype}")
+    scales = ()
+    if kv_scales is not None:
+        scales = tuple(kv_scales)
+        if len(scales) != 2 or any(
+                sc.dtype != torch.float32 or tuple(sc.shape) != (N, kvh)
+                for sc in scales):
+            raise ValueError(f"kv_scales must be two float32 [{N}, {kvh}] "
+                             f"tensors")
     if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise ValueError("block_table and seq_lens must be int32")
     if block_table.dim() != 2 or block_table.shape[0] != B \
@@ -109,10 +203,10 @@ def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens):
         raise ValueError(f"query group G={G} not in 1..{KERNEL_MAX_GROUP}")
     if bs not in KERNEL_BLOCK_SIZES:
         raise ValueError(f"block size {bs} not in {KERNEL_BLOCK_SIZES}")
-    args = (q, k_pages, v_pages, block_table, seq_lens)
+    args = (q, k_pages, v_pages, block_table, seq_lens) + scales
     if any(not a.is_contiguous() for a in args):
-        raise ValueError("q, pools, block_table and seq_lens must be "
-                         "contiguous")
+        raise ValueError("q, pools, scales, block_table and seq_lens must "
+                         "be contiguous")
     if any(a.data_ptr() % 16 for a in args[:3]):
         raise ValueError("q and the pools must be 16-byte aligned")
     if len({a.device for a in args}) != 1:
@@ -126,39 +220,62 @@ def _bind(lib):
     fn.restype = ctypes.c_int
 
 
+def _bind_int8(lib):
+    fn = lib.paged_decode_int8_attention
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
 _DTYPE_CODE = {"torch.float32": 0, "torch.float16": 1, "torch.bfloat16": 2}
 
 
-def _launch(q, k_pages, v_pages, block_table, seq_lens):
+def _launch(q, k_pages, v_pages, block_table, seq_lens, kv_scales=None):
+    """Launch the fp kernel, or the int8 kernel with ``kv_scales``, on
+    the current stream; count the launch."""
     import torch
-    check_kernel_args(q, k_pages, v_pages, block_table, seq_lens)
-    lib = _build.load(_KERNEL, _bind)
+    check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
+                      kv_scales)
     B, kvh, G, hd = q.shape
     out = torch.empty((B, kvh, G, hd), dtype=torch.float32,
                       device=q.device)
+    shape = (B, kvh, G, hd, k_pages.shape[1], block_table.shape[1],
+             _DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5))
+    if kv_scales is None:
+        name = _KERNEL
+        fn = _build.load(name, _bind).paged_decode_attention
+        ptrs = (q, k_pages, v_pages, block_table, seq_lens, out)
+    else:
+        name = _KERNEL_INT8
+        fn = _build.load(name, _bind_int8).paged_decode_int8_attention
+        ptrs = (q, k_pages, v_pages, *kv_scales, block_table, seq_lens,
+                out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_decode_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, kvh, G, hd, k_pages.shape[1], block_table.shape[1],
-            _DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5), stream)
+        err = fn(*(a.data_ptr() for a in ptrs), *shape, stream)
     if err != 0:
         why = "unsupported arguments" if err < 0 else "cudaError_t"
-        raise RuntimeError(f"paged_decode_attention launch failed: {why} "
-                           f"{err}")
-    launch_counts[_KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: {why} {err}")
+    launch_counts[name] += 1
     return out
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens):
+def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens,
+                           kv_scales=None):
     """Decode attention over a paged KV cache: the CUDA kernel for CUDA
-    tensors, :func:`paged_attn_reference` for CPU tensors. On CUDA it
-    launches the kernel or raises; it never falls back."""
+    tensors, the plain version for CPU tensors. ``kv_scales=(kscale,
+    vscale)`` ([N, kvh] f32 each) selects the int8 kernel, whose pools
+    hold int8 codes dequantized inside it. On CUDA it launches the
+    kernel or raises; it never falls back."""
     dev = q.device.type
     if dev == "cuda":
-        return _launch(q, k_pages, v_pages, block_table, seq_lens)
+        return _launch(q, k_pages, v_pages, block_table, seq_lens,
+                       kv_scales)
     if dev == "cpu":
+        if kv_scales is not None:
+            return paged_attn_reference_int8(q, k_pages, v_pages,
+                                             block_table, seq_lens,
+                                             kv_scales)
         return paged_attn_reference(q, k_pages, v_pages, block_table,
                                     seq_lens)
     raise ValueError(f"paged_decode_attention: no kernel for device "

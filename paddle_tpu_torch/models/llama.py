@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DEFAULT_DEVICE
-from ..kernels.paged_attention import paged_decode_attention
+from ..kernels.paged_attention import (gather_pages_dequant,
+                                       paged_decode_attention)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LLAMA_PRESETS",
            "masked_prefill", "scatter_prefill_kv", "prefix_prefill"]
@@ -338,19 +339,60 @@ def masked_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
     return (last @ lm_head).float(), torch.stack(ks), torch.stack(vs)
 
 
-def scatter_prefill_kv(kp, vp, ks, vs, table_row, pad, offset=0):
+def _quantized_prefill_scatter(pool, scales, toks, page, off, valid,
+                               table_row):
+    """int8 half of :func:`scatter_prefill_kv` for ONE pool, IN PLACE:
+    pool [L, N, bs, kvh, hd] int8 codes, scales [L, N, kvh] f32, toks
+    [L, sp, kvh, hd] f32 and page/off/valid [sp]. The scales grow by a
+    scatter-max (many tokens land on one page; the order does not
+    matter), then every page of ``table_row`` is re-expressed in its
+    grown scale by ``round(code * old/new)``. A page whose max did not
+    move has ratio exactly 1.0 and keeps its codes bit for bit, which
+    is what keeps shared prefix pages intact under a tail prefill: the
+    tail never writes into a full shared page. Last, the new tokens are
+    quantized against their page's grown scale. Positions with
+    ``valid`` False are not written (the reference sends them to the
+    NULL page)."""
+    toks, page, off = toks[:, valid], page[valid].long(), off[valid].long()
+    amax = toks.abs().amax(-1)                               # [L, sp, kvh]
+    old_all = scales.clone()
+    scales.scatter_reduce_(1, page[None, :, None].expand_as(amax),
+                           amax / 127.0, "amax", include_self=True)
+    rows = table_row.to(pool.device).long()
+    codes = pool[:, rows]                          # [L, mb, bs, kvh, hd]
+    ratio = (old_all[:, rows] / scales[:, rows])[:, :, None, :, None]
+    pool[:, rows] = torch.clamp(torch.round(codes.float() * ratio),
+                                -127, 127).to(pool.dtype)
+    qt = torch.clamp(torch.round(toks / scales[:, page][..., None]),
+                     -127, 127)
+    pool[:, page, off] = qt.to(pool.dtype)
+
+
+def scatter_prefill_kv(kp, vp, ks, vs, table_row, pad, offset=0,
+                       kv_scales=None):
     """Write ONE row's prefill K/V into the pools IN PLACE. kp/vp
     [L, N, bs, kvh, hd]; ks/vs [L, 1, sp, kvh, hd] right-aligned with
     ``pad`` left pads; ``table_row`` [max_blocks]. Token j (j >= pad)
-    lands at context position j - pad + ``offset``. The reference
-    routes pad positions to the NULL page; here they are not written at
-    all, which leaves every page other than the NULL page identical."""
+    lands at context position j - pad + ``offset``. With
+    ``kv_scales=(kscale, vscale)`` ([L, N, kvh] f32, updated in place)
+    the pools hold int8 codes (:func:`_quantized_prefill_scatter`). The
+    reference routes pad positions to the NULL page; here they are not
+    written at all, which leaves every page other than the NULL page
+    identical."""
     bs = kp.shape[2]
     sp = ks.shape[2]
     pad = int(pad)
     cpos = torch.arange(sp - pad, device=kp.device) + int(offset)
     page = table_row.to(kp.device).long()[cpos // bs]
     off = cpos % bs
+    if kv_scales is not None:
+        valid = torch.ones_like(cpos, dtype=torch.bool)
+        for pool, scales, toks in ((kp, kv_scales[0], ks),
+                                   (vp, kv_scales[1], vs)):
+            _quantized_prefill_scatter(pool, scales,
+                                       toks[:, 0, pad:].float(), page, off,
+                                       valid, table_row)
+        return
     kp[:, page, off] = ks[:, 0, pad:].to(kp.dtype)
     vp[:, page, off] = vs[:, 0, pad:].to(vp.dtype)
 
@@ -362,17 +404,43 @@ def _decode_slots(tables, lens, bs):
     return page, (lens % bs).long()
 
 
+def _quantized_token_insert(pool, scales, page, off, tok):
+    """Append ONE token per row into an int8 pool page, IN PLACE, with a
+    running-max per-(page, kv head) scale. pool [N, bs, kvh, hd] int8
+    codes; scales [N, kvh] f32; page/off [b] write cursors; tok
+    [b, kvh, hd] f32. The page's scale only grows (``new = max(old,
+    amax(tok) / 127)``) and its resident codes are re-expressed in it by
+    ``round(code * old/new)``; when the token does not raise the max the
+    ratio is exactly 1.0 and the codes stay bit-identical. Inactive and
+    mid-prefill rows write the NULL page, as on the fp path."""
+    b = tok.shape[0]
+    page, off = page.long(), off.long()
+    amax = tok.abs().amax(-1)                                 # [b, kvh]
+    old = scales[page]
+    new = torch.maximum(old, amax / 127.0)
+    ratio = (old / new)[:, None, :, None]
+    req = torch.clamp(torch.round(pool[page].float() * ratio), -127, 127)
+    req[torch.arange(b, device=pool.device), off] = torch.clamp(
+        torch.round(tok / new[:, :, None]), -127, 127)
+    pool[page] = req.to(pool.dtype)
+    scales[page] = new
+
+
 def _paged_decode_layer_step(cfg, lp, x, kp, vp, tables, lens,
+                             kscale=None, vscale=None,
                              attn=paged_decode_attention, rope=None,
                              slots=None):
     """One decoder layer for ONE token per row against the paged cache:
     kp/vp [N, bs, kvh, hd] (this layer's pools, updated IN PLACE),
     tables [b, max_blocks] int32, lens [b] int32 = tokens already cached
-    (the new token's position). Inactive rows carry all-NULL tables, so
-    their writes land on page 0; on the card those duplicate writes race,
-    which is harmless because no active row reads page 0 within its
-    length. ``attn`` is the attention function (the kernel wrapper by
-    default, or the plain version for comparison); ``rope`` and
+    (the new token's position). With ``kscale``/``vscale`` ([N, kvh]
+    f32, updated in place) the pools hold int8 codes: the token goes in
+    through :func:`_quantized_token_insert` and the attention reads the
+    codes with their scales. Inactive rows carry all-NULL tables, so
+    their writes land on page 0; on the card those duplicate writes
+    race, which is harmless because no active row reads page 0 within
+    its length. ``attn`` is the attention function (the kernel wrapper
+    by default, or the plain version for comparison); ``rope`` and
     ``slots`` may be passed precomputed (:func:`_paged_decode_step`
     shares them across layers)."""
     hd = cfg.head_dim
@@ -384,27 +452,36 @@ def _paged_decode_layer_step(cfg, lp, x, kp, vp, tables, lens,
         if slots is None else slots
     q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
                    rope)
-    kp[page, off] = k[:, 0].to(kp.dtype)
-    vp[page, off] = v[:, 0].to(vp.dtype)
     qg = q[:, 0].reshape(b, kvh, -1, hd).contiguous()
-    out = attn(qg, kp, vp, tables, lens + 1)
+    if kscale is None:
+        kp[page, off] = k[:, 0].to(kp.dtype)
+        vp[page, off] = v[:, 0].to(vp.dtype)
+        out = attn(qg, kp, vp, tables, lens + 1)
+    else:
+        _quantized_token_insert(kp, kscale, page, off, k[:, 0].float())
+        _quantized_token_insert(vp, vscale, page, off, v[:, 0].float())
+        out = attn(qg, kp, vp, tables, lens + 1, kv_scales=(kscale, vscale))
     x = x + out.to(x.dtype).reshape(b, 1, -1) @ lp["wo"]
     return _mlp(cfg, lp, x)
 
 
 def _paged_decode_step(cfg, stacked, embed, final_norm, lm_head, token,
-                       pages_k, pages_v, tables, lens,
-                       attn=paged_decode_attention):
+                       pages_k, pages_v, tables, lens, kscales=None,
+                       vscales=None, attn=paged_decode_attention):
     """Paged single-token step: token ids [b], pools [L, N, bs, kvh, hd]
     (updated IN PLACE), tables [b, max_blocks], lens [b] -> logits
-    [b, V] fp32."""
+    [b, V] fp32. int8 pools pass ``kscales``/``vscales`` [L, N, kvh]
+    f32, also updated in place."""
     x = embed[token][:, None, :]
     rope = _rope_cos_sin(lens[:, None], cfg.rope_theta, cfg.head_dim)
     slots = _decode_slots(tables, lens, pages_k.shape[2])
     for i in range(cfg.num_hidden_layers):
+        scales = (None, None) if kscales is None \
+            else (kscales[i], vscales[i])
         x = _paged_decode_layer_step(cfg, _layer(stacked, i), x,
                                      pages_k[i], pages_v[i], tables, lens,
-                                     attn=attn, rope=rope, slots=slots)
+                                     *scales, attn=attn, rope=rope,
+                                     slots=slots)
     x = _rms(x, final_norm, cfg.rms_norm_eps)
     return (x[:, 0] @ lm_head).float()
 
@@ -447,7 +524,7 @@ def _prefix_decoder_layer(cfg, lp, x, rope, key_mask, pk, pv,
 
 def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
                    pad_len, prefix_len, kp, vp, table_row,
-                   last_index=None):
+                   last_index=None, kv_scales=None, all_logits=False):
     """Prefill of an uncached TAIL over a prefix already in the pools.
 
     ``ids`` [1, sc]: tail tokens right-aligned (``pad_len`` [1] left
@@ -456,8 +533,11 @@ def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
     each layer gathers its prefix K/V through the table, the tail
     attends over prefix + causal window, and the tail's K/V are
     scattered into kp/vp [L, N, bs, kvh, hd] IN PLACE at
-    ``offset=prefix_len``. Returns the last real position's logits
-    [1, V] fp32."""
+    ``offset=prefix_len``. ``kv_scales`` ([L, N, kvh] f32 pair, updated
+    in place) switches the pools to int8 codes: the gathers dequantize
+    and the scatter quantizes. Returns the last real position's logits
+    [1, V] fp32, or with ``all_logits`` the logits of every window
+    position [1, sc, V] (the speculative verify shape)."""
     b, sc = ids.shape
     bs = kp.shape[2]
     mb = table_row.shape[0]
@@ -472,15 +552,24 @@ def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
     x = embed[ids]
     ks, vs = [], []
     for i in range(cfg.num_hidden_layers):
-        pk = kp[i][rows].reshape(1, mb * bs, *kp.shape[3:]).to(x.dtype)
-        pv = vp[i][rows].reshape(1, mb * bs, *vp.shape[3:]).to(x.dtype)
+        if kv_scales is None:
+            pk = kp[i][rows].reshape(1, mb * bs, *kp.shape[3:])
+            pv = vp[i][rows].reshape(1, mb * bs, *vp.shape[3:])
+        else:
+            pk = gather_pages_dequant(kp[i], rows[None], kv_scales[0][i])
+            pv = gather_pages_dequant(vp[i], rows[None], kv_scales[1][i])
         x, k, v = _prefix_decoder_layer(cfg, _layer(stacked, i), x,
-                                        rope, key_mask, pk, pv,
-                                        prefix_mask)
+                                        rope, key_mask, pk.to(x.dtype),
+                                        pv.to(x.dtype), prefix_mask)
         ks.append(k)
         vs.append(v)
     x = _rms(x, final_norm, cfg.rms_norm_eps)
-    last = x[:, -1] if last_index is None else x[:, last_index]
+    if all_logits:
+        logits = (x @ lm_head).float()
+    else:
+        last = x[:, -1] if last_index is None else x[:, last_index]
+        logits = (last @ lm_head).float()
     scatter_prefill_kv(kp, vp, torch.stack(ks), torch.stack(vs), table_row,
-                       int(pad_len[0]), offset=int(prefix_len[0]))
-    return (last @ lm_head).float()
+                       int(pad_len[0]), offset=int(prefix_len[0]),
+                       kv_scales=kv_scales)
+    return logits

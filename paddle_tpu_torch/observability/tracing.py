@@ -1,9 +1,10 @@
 """Per-request lifecycle tracing: a :class:`RequestTrace` is an
 append-only list of ``(state, t)`` pairs stamped with the shared clock.
 The engine marks transitions (``queued`` -> ``admitted`` ->
-``first_token`` -> ``decode_chunk``* -> ``retired`` | ``preempted`` |
-``failed``), and every latency metric (TTFT, TPOT, queue wait) is
-derived from the trace. A preempted request keeps its trace and opens a
+``prefill_chunk``* -> ``first_token`` -> (``decode_chunk`` |
+``spec_verify``)* -> ``retired`` | ``preempted`` | ``failed``), and
+every latency metric (TTFT, TPOT, queue wait) is derived from the
+trace. A preempted request keeps its trace and opens a
 second queued/admitted stint; :attr:`RequestTrace.queue_wait` sums them.
 """
 
@@ -16,8 +17,9 @@ from .metrics import now
 
 __all__ = ["RequestTrace", "TERMINAL_STATES", "LIFECYCLE_STATES"]
 
-LIFECYCLE_STATES = ("arrival", "queued", "admitted", "first_token",
-                    "decode_chunk", "preempted", "retired", "failed")
+LIFECYCLE_STATES = ("arrival", "queued", "admitted", "prefill_chunk",
+                    "first_token", "decode_chunk", "spec_verify",
+                    "preempted", "retired", "failed")
 TERMINAL_STATES = frozenset({"retired", "failed"})
 
 _ids = itertools.count(1)

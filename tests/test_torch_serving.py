@@ -120,6 +120,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, paddle_tpu_torch;"
             "assert 'torch' not in sys.modules;"
             "import paddle_tpu_torch.inference.serving,"
+            " paddle_tpu_torch.inference.spec_decode,"
+            " paddle_tpu_torch.kernels.paged_attention,"
             " paddle_tpu_torch.convert;"
             "bad = [m for m in sys.modules if m == 'jax' or"
             " m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'];"
@@ -292,11 +294,15 @@ def test_preemption_and_small_pool_keep_outputs(ref):
 
 def test_engine_refuses_what_is_not_ported(ref):
     from paddle_tpu_torch.inference.serving import DecodeEngine
-    for kw in (dict(paged=False), dict(chunked_prefill=True),
-               dict(spec_decode=True), dict(kv_dtype="int8"),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(paged=False), "item 2"),
+                     (dict(mesh=object()), "item 4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             DecodeEngine(ref.pm, **kw)
+    for kw in (dict(chunked_prefill=True), dict(spec_decode=True),
+               dict(kv_dtype="int8"), dict(chunked_prefill=True,
+                                           spec_decode=True,
+                                           kv_dtype="int8")):
+        DecodeEngine(ref.pm, **kw)          # ported: these construct
     eng = DecodeEngine(ref.pm, capacity=1, s_max=16, chunk=4)
     with pytest.raises(ValueError):
         eng.submit(np.zeros(0, np.int32))
