@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one
 NVIDIA card: builds its CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version, and serves requests
-through ``DecodeEngine`` at the full width of llama3-8b.
+holds each against its plain PyTorch version, serves requests through
+``DecodeEngine`` at the full width of llama3-8b, and trains bench.py's
+default configuration (llama3-8b layer width, 2 layers) through
+``TrainStep``.
 
     python3 chip_smoke.py            # on a machine with a CUDA card
-    python3 chip_smoke.py --cpu      # rehearsal: debug preset, plain
-                                     # versions, no kernel, no result
+    python3 chip_smoke.py --cpu      # rehearsal: debug and tiny
+                                     # presets, plain versions, no
+                                     # kernel, no result
 
 Phases, each printed as it ends:
   1. the card's name and power limit; every kernel built (one nvcc per
-     source, all at once), with the build seconds and ptxas's register
-     and spill counts;
+     source, the four sources at once: paged_decode, paged_decode_int8,
+     flash_fwd, flash_bwd), with the build seconds and ptxas's register
+     and spill counts; TF32 off for every fp32 product;
   2. each kernel against its plain version at the shapes the main path
      gives it: max-abs error, and its time beside the plain version's,
      one PyTorch library call's and the card's bound for the same work
@@ -36,7 +40,24 @@ Phases, each printed as it ends:
      against the plain int8 version;
   6. speculative decoding on the same model (int8 KV, chunked prefill):
      4 requests of repeating prompts, 32 new tokens each; verify steps
-     are prefills, so no paged-decode kernel launches.
+     are prefills, so no paged-decode kernel launches;
+  7. the FlashAttention-2 kernels (flash_fwd, flash_dq, flash_dkv)
+     against their plain versions at B=2, S=2048, H=32, Hkv=8, D=128,
+     causal and not, and at a ragged S=1000, in bf16 and fp32: out and
+     lse, then dq, dk and dv; at S=2048 causal each kernel's time beside
+     its bound, its plain version and PyTorch's SDPA (forward, backward,
+     both);
+  8. the tiny preset in fp32 on the card and on the CPU from the same
+     weights and batches: the first gradients, then 3 AdamW steps'
+     losses and parameters, within stated tolerances;
+  9. bench.py's train step: llama3-8b layer width, 2 layers, vocab
+     32000, bf16 with fp32 master weights (AdamW, lr 1e-4), recompute
+     "core_attn", batch 6 x 2048 of bench.py's batches; the first loss
+     through the kernels against the plain attention's, then 1 warm-up
+     and 10 timed steps with the counts zeroed just before: tokens/s,
+     MFU by bench.py's formula, peak memory, a falling loss, and each
+     FA2 kernel launched once per layer and step (the forward twice:
+     "core_attn" recomputes it).
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -766,6 +787,345 @@ def phase_spec(on_card, model, args):
         tokens_per_s=round(sum(r.max_new for r in reqs) / wall, 2))
 
 
+# -- phase 7: FlashAttention-2 kernels against their plain versions ----------
+
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+FLASH_TOL_WHY = ("max-abs error over max |plain| of each output; fp32: "
+                 "sums in other orders and expf; bf16: the same plus "
+                 "flips of the roundings to bf16 (P, dS, the outputs)")
+
+
+def flash_case(B, S, H, Hkv, D, dtype, device, seed):
+    """q, k, v, dout ~ N(0, 1) on ``device`` from a seeded generator."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda h: torch.randn((B, S, h, D), generator=g,  # noqa: E731
+                               device=device).to(dtype)
+    return mk(H), mk(Hkv), mk(Hkv), mk(H)
+
+
+def flash_bounds_ms(q, k, causal):
+    """Least time for each kernel's work on this input: the larger of
+    its flops at the input type's peak (score pairs of the causal
+    triangle only, S(S+1)/2, when causal) and its bytes at 3.35 TB/s
+    (each input read once, each output written once)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    pairs = S * (S + 1) // 2 if causal else S * S
+    elt = q.element_size()
+    qb, kb, rows = B * S * H * D * elt, B * S * Hkv * D * elt, B * H * S * 4
+    work = {"flash_fwd": (4 * B * H * D * pairs, 2 * qb + 2 * kb + rows),
+            "flash_dq": (6 * B * H * D * pairs, 3 * qb + 2 * kb + 2 * rows),
+            "flash_dkv": (8 * B * H * D * pairs, 2 * qb + 4 * kb + 2 * rows)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / H100_FLOPS[q.dtype]
+        t_bytes = nbytes / H100_BYTES_PER_S
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_flash(on_card, seed):
+    """Each FA2 kernel against its plain version at this slice's shapes
+    (B=2, H=32, Hkv=8, D=128; S=2048 causal and not, and a ragged
+    S=1000 causal), in bf16 and fp32 (TF32 off): out and lse of the
+    forward, then dq, dk and dv. At S=2048 causal each kernel is timed
+    beside its bound, its plain version and SDPA (forward; backward
+    alone, which computes dq, dk and dv together; forward + backward).
+    The CPU rehearsal runs the plain versions at B=1, H=4, Hkv=2, D=32."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    device = "cuda" if on_card else "cpu"
+    B, H, Hkv, D = (2, 32, 8, 128) if on_card else (1, 4, 2, 32)
+    shapes = ((2048, True), (2048, False), (1000, True)) if on_card \
+        else ((128, True), (128, False), (77, True))
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
+        if on_card else None
+    flush = (lambda: flush_buf.zero_()) if on_card else None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    say("flash", B=B, H=H, Hkv=Hkv, D=D, tf32=False,
+        tolerance=repr(FLASH_TOL_WHY))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        tol = FLASH_TOL[dtype]
+        for S, causal in shapes:
+            q, k, v, do = flash_case(B, S, H, Hkv, D, dtype, device, seed)
+            o, lse = fa._fwd(q, k, v, causal)
+            dq, dk, dv = fa._bwd(q, k, v, o, lse, do, causal, None)
+            sync()
+            po, plse = fa.flash_fwd_reference(q, k, v, causal)
+            pdq, pdk, pdv = fa.flash_bwd_reference(q, k, v, po, plse, do,
+                                                   causal)
+            errs = {}
+            for what, got, want in (("out", o, po), ("lse", lse, plse),
+                                    ("dq", dq, pdq), ("dk", dk, pdk),
+                                    ("dv", dv, pdv)):
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{what}: type and shape of the plain version's")
+                check(bool(torch.isfinite(got).all()), f"{what} is finite")
+                err = float((got.float() - want.float()).abs().max())
+                scale = max(1.0, float(want.float().abs().max()))
+                errs[what] = err
+                check(err <= tol * scale,
+                      f"flash {what} {name} S={S} causal={causal}: "
+                      f"max-abs {err} <= {tol} x {scale}")
+            say("flash", dtype=name, S=S, causal=causal, tol=tol,
+                **{f"{w}_max_abs_err": e for w, e in errs.items()})
+            if not (on_card and S == 2048 and causal):
+                continue
+            delta = fa.flash_delta(o, do).contiguous()
+            lib = _build.load("flash_bwd", fa._bind_bwd)
+            g_dq, g_dk, g_dv = (torch.empty_like(t) for t in (q, k, v))
+            calls = {
+                "flash_fwd": lambda: fa._fwd(q, k, v, True),
+                "flash_dq": lambda: fa._run(
+                    "flash_dq", lib.flash_dq,
+                    (q, k, v, do, lse, delta, g_dq), q, k, True),
+                "flash_dkv": lambda: fa._run(
+                    "flash_dkv", lib.flash_dkv,
+                    (q, k, v, do, lse, delta, g_dk, g_dv), q, k, True)}
+            plain_fwd = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, True),
+                                iters=5, flush=flush)
+            plain_bwd = cuda_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, po, plse, do, True), iters=5, flush=flush)
+            lib_ms = sdpa_flash_ms(q, k, v, do, flush)
+            bounds = flash_bounds_ms(q, k, True)
+            main_err = {"flash_fwd": errs["out"], "flash_dq": errs["dq"],
+                        "flash_dkv": max(errs["dk"], errs["dv"])}
+            for kname, call in calls.items():
+                ms = cuda_ms(call, flush=flush)
+                bound_ms, bound_by = bounds[kname]
+                plain_ms = plain_fwd if kname == "flash_fwd" else plain_bwd
+                library_ms = lib_ms["fwd"] if kname == "flash_fwd" \
+                    else lib_ms["bwd"]
+                say("flash", name=kname, dtype=name, S=S, causal=True, ms=ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    share_of_bound=bound_ms / ms, plain_ms=plain_ms,
+                    library_ms=library_ms,
+                    sdpa_fwd_bwd_ms=lib_ms["fwd_bwd"])
+                out[(kname, name)] = dict(
+                    max_abs_err=main_err[kname], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
+    return out
+
+
+def sdpa_flash_ms(q, k, v, do, flush):
+    """PyTorch's scaled_dot_product_attention on the same inputs
+    (causal, grouped), timed only: the forward, the backward alone
+    (dq, dk and dv in one call) and the two together. The port never
+    calls it."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        fwd = cuda_ms(sdpa, flush=flush)
+    o = sdpa()
+    bwd = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                              retain_graph=True),
+                  flush=flush)
+    both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                   flush=flush)
+    return {"fwd": fwd, "bwd": bwd, "fwd_bwd": both}
+
+
+# -- phases 8 and 9: training -------------------------------------------------
+
+def bench_batches(vocab, batch, seq, n, seed):
+    """bench.py's batches: a noisy affine next-token process over at most
+    256 ids (bench.py:1958-1966), from a numpy generator seeded with
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    support = min(256, vocab)
+    out = []
+    for _ in range(n):
+        toks = np.empty((batch, seq), dtype=np.int64)
+        toks[:, 0] = rng.integers(0, support, batch)
+        noise = rng.integers(-2, 3, size=(batch, seq - 1))
+        for t in range(1, seq):
+            toks[:, t] = (toks[:, t - 1] * 5 + 17 + noise[:, t - 1]) \
+                % support
+        out.append(toks)
+    return out
+
+
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_PARAM_TOL = 1e-3
+
+
+def phase_train_small(on_card, seed):
+    """The tiny preset in fp32 (4 layers, hidden 256, 8/4 heads of 32)
+    on the card, through the kernels, and on the CPU, through the plain
+    versions, from the same weights and batches (2 x 256 tokens; TF32
+    off). The gradients of the first batch agree within TRAIN_GRAD_TOL
+    = 1e-4 of each parameter's largest gradient (fp32 sums in other
+    orders). Then 3 AdamW steps (lr 1e-3): the losses agree within 1e-4
+    relative, and the parameters within TRAIN_PARAM_TOL = 1e-3, one
+    step's lr: Adam divides m by sqrt(v), so a weight whose gradient is
+    at the level of the fp32 noise moves by a part of lr that the noise
+    decides (a tolerance of 1e-4 set before the first card run failed
+    at 1.1e-4 while losses agreed to 7e-8)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    cpu_model = LlamaForCausalLM("tiny", device="cpu",
+                                 generator=torch.Generator().manual_seed(seed))
+    card_model = copy.deepcopy(cpu_model).to("cuda" if on_card else "cpu")
+    batches = bench_batches(cpu_model.config.vocab_size, 2, 256, 3, seed)
+    runs = []
+    for model in (cpu_model, card_model):
+        dev = model.embed_tokens.device
+        b0 = torch.as_tensor(batches[0], device=dev)
+        llama_loss_fn(model, b0, b0).backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        step = TrainStep(model, AdamW(learning_rate=1e-3,
+                                      parameters=model.named_parameters()),
+                         llama_loss_fn)
+        fa.launch_counts.clear()
+        losses = [float(step(torch.as_tensor(b, device=dev),
+                             torch.as_tensor(b, device=dev)))
+                  for b in batches]
+        runs.append((grads, losses, dict(fa.launch_counts)))
+    (cpu_grads, cpu_losses, _), (card_grads, card_losses, launches) = runs
+    gerr = {n: float((card_grads[n] - g).abs().max() / g.abs().max())
+            for n, g in cpu_grads.items()}
+    rel = max(abs(a - b) / abs(a) for a, b in zip(cpu_losses, card_losses))
+    perr = {n: float((p.detach().cpu() - q.detach()).abs().max())
+            for (n, p), q in zip(card_model.named_parameters(),
+                                 cpu_model.parameters())}
+    worst = max(perr, key=perr.get)
+    layers = cpu_model.config.num_hidden_layers
+    say("train_small", preset="tiny", dtype="float32", tf32=False,
+        grad_max_rel_diff=max(gerr.values()),
+        grad_worst=max(gerr, key=gerr.get), grad_tol=TRAIN_GRAD_TOL,
+        card_losses=[round(x, 6) for x in card_losses],
+        cpu_losses=[round(x, 6) for x in cpu_losses], loss_max_rel_diff=rel,
+        param_max_abs_diff=perr[worst], param_worst=worst,
+        param_tol=TRAIN_PARAM_TOL, launches=json.dumps(launches))
+    check(all(np.isfinite(card_losses)), "tiny losses are finite")
+    check(max(gerr.values()) <= TRAIN_GRAD_TOL,
+          f"tiny first gradients agree: {gerr}")
+    check(rel <= 1e-4, f"tiny losses agree: {rel} <= 1e-4 relative")
+    check(perr[worst] <= TRAIN_PARAM_TOL,
+          f"tiny parameters agree: {worst} {perr[worst]} <= "
+          f"{TRAIN_PARAM_TOL}")
+    if on_card:
+        want = {"flash_fwd": layers * 3, "flash_dq": layers * 3,
+                "flash_dkv": layers * 3}
+        check(launches == want, f"tiny launches {launches} == {want}")
+
+
+BENCH_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                 num_hidden_layers=2, num_attention_heads=32,
+                 num_key_value_heads=8, max_position_embeddings=4096,
+                 dtype="bfloat16", recompute=True,
+                 recompute_granularity="core_attn")
+TRAIN_LOSS_TOL = 2e-2
+
+
+def phase_train(on_card, args):
+    """bench.py's default train step (bench.py:1917-1930) through the
+    port: llama3-8b layer width, 2 layers, vocab 32000, bf16 parameters,
+    recompute "core_attn", batch 6 x 2048, AdamW(lr 1e-4,
+    multi_precision=True), bench.py's batches from --seed. Before any
+    update, the first batch's loss through the kernels is held against
+    the loss through the plain attention on the same weights, within
+    TRAIN_LOSS_TOL = 2e-2 absolute (bf16 activations over 2 random
+    layers; the loss is about ln(32000) = 10.4). Then 1 warm-up step and
+    10 timed steps with the launch counts zeroed just before: flash_fwd
+    launched 2 x layers x steps times (core_attn recomputes the
+    attention forward in the backward), flash_dq and flash_dkv layers x
+    steps times. The loss is finite and falls. The CPU rehearsal runs
+    the debug preset's widths (batch 2 x 64, 3 steps)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import llama as ll
+    from paddle_tpu_torch.optimizer import AdamW
+    device = "cuda" if on_card else "cpu"
+    if on_card:
+        cfg = ll.LlamaConfig(**BENCH_CFG)
+        batch, seq, iters = 6, 2048, 10
+    else:
+        cfg = ll.LlamaConfig(**{**ll.LLAMA_PRESETS["debug"],
+                                "dtype": "bfloat16", "recompute": True,
+                                "recompute_granularity": "core_attn"})
+        batch, seq, iters = 2, 64, 3
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = ll.LlamaForCausalLM(
+        cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(args.seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = cfg.vocab_size * cfg.hidden_size
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                multi_precision=True)
+    step = TrainStep(model, opt, ll.llama_loss_fn)
+    batches = [torch.as_tensor(b, device=device) for b in bench_batches(
+        cfg.vocab_size, batch, seq, iters + 1, args.seed)]
+    sync()
+    say("train", layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
+        ff=cfg.intermediate_size, heads=cfg.num_attention_heads,
+        kv_heads=cfg.num_key_value_heads, vocab=cfg.vocab_size,
+        params=n_params, batch=batch, seq=seq, dtype=cfg.dtype,
+        recompute=cfg.recompute_granularity,
+        init_s=round(time.perf_counter() - t0, 3))
+
+    first = batches[-1]
+    plain = lambda q, k, v: fa.flash_fwd_reference(q, k, v, True)[0]  # noqa
+    with torch.no_grad():
+        weights = model.weights()
+        lk = float(ll.cross_entropy(
+            ll._llama_forward(cfg, *weights, first)[:, :-1].reshape(
+                -1, cfg.vocab_size), first[:, 1:].reshape(-1)))
+        lp = float(ll.cross_entropy(
+            ll._llama_forward(cfg, *weights, first, attn=plain)[:, :-1]
+            .reshape(-1, cfg.vocab_size), first[:, 1:].reshape(-1)))
+    say("train", first_loss_kernels=lk, first_loss_plain=lp,
+        abs_diff=abs(lk - lp), tol=TRAIN_LOSS_TOL)
+    check(abs(lk - lp) <= TRAIN_LOSS_TOL,
+          f"first loss through the kernels {lk} vs plain {lp}")
+    del weights
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss_first = float(step(first, first))
+    warm_s = time.perf_counter() - t
+    fa.launch_counts.clear()
+    sync()
+    t = time.perf_counter()
+    for i in range(iters):
+        loss = step(batches[i], batches[i])
+    loss = float(loss)                        # a fetch: synced
+    dt = time.perf_counter() - t
+    launches = dict(fa.launch_counts)
+    tokens_per_s = batch * seq * iters / dt
+    mfu = 6.0 * (n_params - n_embed) * tokens_per_s / H100_FLOPS[
+        torch.bfloat16]
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say("train", steps=iters, wall_s=round(dt, 4),
+        step_ms=round(1e3 * dt / iters, 3), warmup_s=round(warm_s, 3),
+        tokens_per_s=round(tokens_per_s, 2), mfu=round(mfu, 4),
+        loss_first=round(loss_first, 4), loss=round(loss, 4),
+        peak_mem_gib=round(peak / 2 ** 30, 3), launches=json.dumps(launches))
+    check(np.isfinite(loss_first) and np.isfinite(loss), "losses finite")
+    check(loss < loss_first, f"the loss falls: {loss_first} -> {loss}")
+    L = cfg.num_hidden_layers
+    if on_card:
+        want = {"flash_fwd": 2 * L * iters, "flash_dq": L * iters,
+                "flash_dkv": L * iters}
+        check(launches == want, f"training launches {launches} == {want}")
+    if args.profile:
+        profile_train_step(step, batches[0], on_card)
+    return launches
+
+
 def phase_profile(model, on_card, kv_dtype):
     """One decode_once of 4 rows (128-token prompts) with ``kv_dtype``
     pools under torch.profiler: host wall against summed device kernel
@@ -786,18 +1146,54 @@ def phase_profile(model, on_card, kv_dtype):
         t = time.perf_counter()
         eng.decode_once()
         wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n = sum(e.count for e in kernels)
+    kernels, dev_us, n = device_kernels(prof)
     say("profile", kv_dtype=kv_dtype,
         decode_once_wall_ms=round(wall * 1e3, 3),
         device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
         device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
         steps=eng.chunk)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in kernels[:8]:
         say("profile", kv_dtype=kv_dtype, kernel=e.key[:60].replace(" ", "_"),
             count=e.count, device_ms=round(e.self_device_time_total / 1e3, 3))
+
+
+def device_kernels(prof):
+    """(device kernels by device time, most first; their summed device
+    microseconds; their launch count) of a torch.profiler run."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return (kernels, sum(e.self_device_time_total for e in kernels),
+            sum(e.count for e in kernels))
+
+
+def profile_train_step(step, batch, on_card):
+    """One train step of phase 9 under torch.profiler, after its counts
+    were read: host wall against summed device kernel time, split into
+    the FA2 kernels, cuBLAS's GEMMs (``nvjet``/``gemm`` kernels) and the
+    rest, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        float(step(batch, batch))
+        wall = time.perf_counter() - t
+    kernels, dev_us, n = device_kernels(prof)
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key)
+    gemm_us = sum(e.self_device_time_total for e in kernels
+                  if "nvjet" in e.key or "gemm" in e.key.lower())
+    say("profile", what="train_step", wall_ms=round(wall * 1e3, 3),
+        device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
+        device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
+        flash_kernels_ms=round(flash_us / 1e3, 3),
+        gemm_kernels_ms=round(gemm_us / 1e3, 3),
+        other_kernels_ms=round((dev_us - flash_us - gemm_us) / 1e3, 3))
+    for e in kernels[:12]:
+        say("profile", what="train_step",
+            kernel=e.key[:60].replace(" ", "_"), count=e.count,
+            device_ms=round(e.self_device_time_total / 1e3, 3))
 
 
 def main():
@@ -807,7 +1203,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after the serving phases, profile one "
-                         "decode_once with fp and with int8 pools")
+                         "decode_once with fp and with int8 pools; after "
+                         "phase 9, one train step")
     args = ap.parse_args()
     args.preset = "debug" if args.cpu else "llama3-8b"
     on_card = not args.cpu
@@ -817,11 +1214,16 @@ def main():
         return 1
     from paddle_tpu_torch.kernels import _build
     if on_card:
+        # fp32 products in full fp32: the plain versions and the fp32
+        # training comparison hold the kernels' fp32 arithmetic
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         print(card_line(), flush=True)
         kind = torch.cuda.get_device_name(0)
         say("card", kind=kind, count=torch.cuda.device_count(),
-            torch=torch.__version__, cuda=torch.version.cuda)
-        names = ["paged_decode", "paged_decode_int8"]
+            torch=torch.__version__, cuda=torch.version.cuda, tf32=False)
+        names = ["paged_decode", "paged_decode_int8", "flash_fwd",
+                 "flash_bwd"]
         t0 = time.perf_counter()
         _build.build_all(names)
         say("build", kernels=",".join(names),
@@ -843,21 +1245,36 @@ def main():
     if args.profile:
         for kv_dtype in ("fp", "int8"):
             phase_profile(model, on_card, kv_dtype)
+    del model                   # the training phases need the memory
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    flash = phase_flash(on_card, args.seed)
+    phase_train_small(on_card, args.seed)
+    launches_train = phase_train(on_card, args)
     if not on_card:
         print("CPU rehearsal passed (plain versions; no result off the "
               "card)")
         return 0
+    src = "paddle_tpu_torch/kernels/csrc/"
     lines = [dict(name="paged_decode", route="cuda",
-                  source="paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+                  source=src + "paged_decode.cu",
                   replaces="paddle_tpu/kernels/paged_attention.py:95",
                   launches=launches.get("paged_decode", 0),
                   **kernels["bfloat16"]),
              dict(name="paged_decode_int8", route="cuda",
-                  source="paddle_tpu_torch/kernels/csrc/"
-                         "paged_decode_int8.cu",
+                  source=src + "paged_decode_int8.cu",
                   replaces="paddle_tpu/kernels/paged_attention.py:186",
                   launches=launches_int8.get("paged_decode_int8", 0),
                   **kernels_int8[("bfloat16", 16)])]
+    for name, source, line in (("flash_fwd", "flash_fwd.cu", 48),
+                               ("flash_dq", "flash_bwd.cu", 530),
+                               ("flash_dkv", "flash_bwd.cu", 1021)):
+        lines.append(dict(
+            name=name, route="cuda", source=src + source,
+            replaces=f"paddle_tpu/kernels/flash_attention.py:{line}",
+            launches=launches_train.get(name, 0),
+            **flash[(name, "bfloat16")]))
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,19 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu``.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference. Its first slice is paged Llama serving: ``DecodeEngine``
-over a block-pool KV cache whose decode attention runs on a
-hand-written CUDA kernel for Hopper (``kernels/csrc/paged_decode.cu``).
+reference. It holds two paths, each on hand-written CUDA kernels for
+Hopper (``kernels/csrc/``):
+
+- paged Llama serving: ``inference.serving.DecodeEngine`` over a
+  block-pool KV cache, with the prefix cache, the priority scheduler,
+  int8 KV, chunked prefill and self-speculative decoding; its decode
+  attention runs on ``paged_decode.cu`` (``paged_decode_int8.cu`` for
+  int8 pools);
+- Llama pretraining on one card: ``models.llama.LlamaForCausalLM`` and
+  ``llama_loss_fn``, ``optimizer.AdamW`` (fp32 master weights) and
+  ``jit.TrainStep``, with causal attention on the FlashAttention-2
+  forward, dQ and dK/dV kernels (``flash_fwd.cu``, ``flash_bwd.cu``)
+  and layer recompute.
 
 Importing this package does no work: it imports no torch, builds no
 kernel, probes no device and allocates nothing. Kernels build on their

@@ -18,11 +18,13 @@ __all__ = ["from_jax_state_dict"]
 
 
 def from_jax_state_dict(state: dict, config: LlamaConfig | str,
-                        device=DEFAULT_DEVICE, dtype=None):
+                        device=DEFAULT_DEVICE, dtype=None, trainable=False):
     """A :class:`LlamaForCausalLM` on ``device`` holding the arrays of
     ``state`` (name -> numpy array), cast to ``dtype`` (default: the
-    configuration's). Raises ``KeyError`` for a missing or unknown name
-    and ``ValueError`` for a shape that does not match."""
+    configuration's). Its parameters require grad only with
+    ``trainable`` (for serving they need not). Raises ``KeyError`` for a
+    missing or unknown name and ``ValueError`` for a shape that does not
+    match."""
     model = LlamaForCausalLM(config, dtype=dtype, device="meta")
     want = dict(model.named_parameters())
     given = {}
@@ -45,5 +47,5 @@ def from_jax_state_dict(state: dict, config: LlamaConfig | str,
             device=device, dtype=p.dtype)
     model.load_state_dict(tensors, assign=True)
     for p in model.parameters():
-        p.requires_grad_(False)
+        p.requires_grad_(trainable)
     return model

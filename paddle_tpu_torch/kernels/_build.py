@@ -21,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODE", "nvcc_path",
            "nvcc_command", "library_path", "build_all", "build_log",
            "load"]
 
@@ -30,6 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the element-type codes of the kernels' C interfaces, by torch dtype
+#: name
+DTYPE_CODE = {"torch.float32": 0, "torch.float16": 1, "torch.bfloat16": 2}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,8 +56,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
+    """Where the library of ``csrc/<name>.cu`` lives once built. The
+    tag hashes the source, the shared headers (``csrc/*.cuh``) and the
+    flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

@@ -227,9 +227,6 @@ def _bind_int8(lib):
     fn.restype = ctypes.c_int
 
 
-_DTYPE_CODE = {"torch.float32": 0, "torch.float16": 1, "torch.bfloat16": 2}
-
-
 def _launch(q, k_pages, v_pages, block_table, seq_lens, kv_scales=None):
     """Launch the fp kernel, or the int8 kernel with ``kv_scales``, on
     the current stream; count the launch."""
@@ -240,7 +237,7 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, kv_scales=None):
     out = torch.empty((B, kvh, G, hd), dtype=torch.float32,
                       device=q.device)
     shape = (B, kvh, G, hd, k_pages.shape[1], block_table.shape[1],
-             _DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5))
+             _build.DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5))
     if kv_scales is None:
         name = _KERNEL
         fn = _build.load(name, _bind).paged_decode_attention

@@ -1,5 +1,6 @@
-"""Llama family in PyTorch: configuration, the stacked-parameter model
-and the serving functions of the paged decode engine.
+"""Llama family in PyTorch: configuration, the stacked-parameter model,
+its training forward and loss, and the serving functions of the paged
+decode engine.
 
 Counterpart of ``paddle_tpu/models/llama.py``. Parameters are stacked
 over layers (``[L, ...]``) under the reference's keys, so a JAX
@@ -7,7 +8,13 @@ over layers (``[L, ...]``) under the reference's keys, so a JAX
 serving functions keep the reference's names and argument order; where
 the reference returns updated KV pools, these update the pools in place
 (the reference donates them to its compiled programs for the same
-effect) and say so.
+effect) and say so. They run under ``torch.no_grad()`` in the engine.
+
+Training (:meth:`LlamaForCausalLM.forward` without a mask,
+:func:`llama_loss_fn`) runs causal attention through the FlashAttention-2
+kernels (:mod:`paddle_tpu_torch.kernels.flash_attention`) and, with
+``recompute``, rematerializes each layer in the backward as the
+reference's ``jax.checkpoint`` policies do (:func:`_scan_layers`).
 """
 
 from __future__ import annotations
@@ -17,13 +24,17 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import DEFAULT_DEVICE
+from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import (gather_pages_dequant,
                                        paged_decode_attention)
+from ..nn.functional.loss import cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LLAMA_PRESETS",
-           "masked_prefill", "scatter_prefill_kv", "prefix_prefill"]
+           "llama_loss_fn", "masked_prefill", "scatter_prefill_kv",
+           "prefix_prefill"]
 
 
 @dataclass
@@ -40,6 +51,12 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     # Qwen2-style additive QKV biases
     attention_bias: bool = False
+    # rematerialize each decoder layer in the backward: "full" recomputes
+    # the whole layer, "core_attn" keeps the projections' and the
+    # attention's outputs and recomputes the norms, rope, attention and
+    # SwiGLU core (see _scan_layers)
+    recompute: bool = False
+    recompute_granularity: str = "full"
     dtype: str = "float32"
     # mixture of experts (0 experts = dense); the port runs dense models
     # only, the fields exist so that every reference preset parses
@@ -47,6 +64,13 @@ class LlamaConfig:
     num_experts_per_tok: int = 2
     moe_intermediate_size: int = 0
     moe_num_shared_experts: int = 0
+
+    def __post_init__(self):
+        if self.recompute_granularity not in ("full", "core_attn"):
+            raise ValueError(
+                f"unknown recompute_granularity "
+                f"{self.recompute_granularity!r}; expected 'full' or "
+                f"'core_attn'")
 
     @property
     def head_dim(self):
@@ -202,15 +226,174 @@ def _mlp(cfg, lp, x):
     return x + (F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
 
 
-def _decoder_layer(cfg, lp, x, rope, key_mask):
-    """One decoder layer over [b, s, d] with a valid-key mask; returns
-    (x, k, v) with the post-rope K and V for the decode cache."""
+def _attention(q, k, v, causal=True):
+    """[b, s, h, d] attention of the training path: the FlashAttention-2
+    kernels on CUDA, their plain version on the CPU (the reference takes
+    its Pallas kernel on the TPU and ``_sdpa_reference`` elsewhere)."""
+    return flash_attention(q, k, v, causal)
+
+
+def _decoder_layer(cfg, lp, x, rope, key_mask=None, attn=_attention):
+    """One decoder layer over [b, s, d]; returns (x, k, v) with the
+    post-rope K and V for the decode cache. Without ``key_mask`` the
+    attention is causal through ``attn`` (the training path); with it,
+    over the valid keys of each row only (left-padded serving
+    prefill)."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
                    rope)
-    attn = _attention_keymask(q, k, v, key_mask)
-    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    a = attn(q, k, v) if key_mask is None \
+        else _attention_keymask(q, k, v, key_mask)
+    x = x + a.reshape(b, s, -1) @ lp["wo"]
     return _mlp(cfg, lp, x), k, v
+
+
+class _NormLinears(torch.autograd.Function):
+    """``rms(x) @ w_i (+ b_i)`` for each projection i, saving x, the
+    norm weight and the w_i but not rms(x): the backward recomputes the
+    norm and not the products, whose outputs the "core_attn" policy
+    keeps. ``apply(x, ln, eps, n, w_1..w_n[, b_1..b_n])``."""
+
+    @staticmethod
+    def forward(ctx, x, ln, eps, n, *params):
+        ws, bs = params[:n], params[n:]
+        y = _rms(x, ln, eps)
+        outs = [y @ w for w in ws]
+        if bs:
+            outs = [o + b for o, b in zip(outs, bs)]
+        ctx.eps, ctx.has_bias = eps, bool(bs)
+        ctx.save_for_backward(x, ln, *ws)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        x, ln, *ws = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            lnd = ln.detach().requires_grad_()
+            y = _rms(xd, lnd, ctx.eps)
+        y2 = y.detach().reshape(-1, y.shape[-1])
+        dy, dws = None, []
+        for do, w in zip(douts, ws):
+            dws.append(y2.T @ do.reshape(-1, do.shape[-1]))
+            t = do @ w.T
+            dy = t if dy is None else dy + t
+        dx, dln = torch.autograd.grad(y, (xd, lnd), dy)
+        dbs = [do.reshape(-1, do.shape[-1]).sum(0) for do in douts] \
+            if ctx.has_bias else []
+        return (dx, dln, None, None, *dws, *dbs)
+
+
+class _SwiGLUDown(torch.autograd.Function):
+    """``(silu(gate) * up) @ w_down``, saving gate, up and w_down but not
+    the product silu(gate) * up, which the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, gate, up, w_down):
+        ctx.save_for_backward(gate, up, w_down)
+        return (F.silu(gate) * up) @ w_down
+
+    @staticmethod
+    def backward(ctx, dout):
+        gate, up, w_down = ctx.saved_tensors
+        with torch.enable_grad():
+            g = gate.detach().requires_grad_()
+            u = up.detach().requires_grad_()
+            h = F.silu(g) * u
+        dw = h.detach().reshape(-1, h.shape[-1]).T \
+            @ dout.reshape(-1, dout.shape[-1])
+        dgate, dup = torch.autograd.grad(h, (g, u), dout @ w_down.T)
+        return dgate, dup, dw
+
+
+def _core_attention(cfg, q, k, v, rope, attn):
+    """Rope and causal attention on the flat projections [b, s, h*hd]
+    (k, v: [b, s, kvh*hd]) -> [b, s, h*hd]."""
+    b, s, _ = q.shape
+    hd = cfg.head_dim
+    q = _rope(q.reshape(b, s, -1, hd), rope)
+    k = _rope(k.reshape(b, s, -1, hd), rope)
+    return attn(q, k, v.reshape(b, s, -1, hd)).reshape(b, s, -1)
+
+
+def _decoder_layer_core_attn(cfg, lp, x, rope, attn=_attention):
+    """One causal decoder layer under the "core_attn" recompute, the
+    hand-written counterpart of the reference's
+    ``save_only_these_names("qkv", "attn_out", "mlp_gate", "mlp_up")``
+    (``llama.py:403-406``). Kept for the backward: the layer input, the
+    q/k/v projections (pre-rope, "qkv"), the attention output
+    ("attn_out"), the gate and up projections ("mlp_gate", "mlp_up"),
+    and the residual stream after attention, which the reference
+    recomputes (one matmul) and this keeps. Recomputed: both norms,
+    rope, the attention forward (its out and lse, so the FA2 forward
+    launches twice per layer and step) and silu(gate) * up."""
+    eps = cfg.rms_norm_eps
+    bias = (lp["bq"], lp["bk"], lp["bv"]) if "bq" in lp else ()
+    q, k, v = _NormLinears.apply(x, lp["input_ln"], eps, 3, lp["wq"],
+                                 lp["wk"], lp["wv"], *bias)
+    a = checkpoint(_core_attention, cfg, q, k, v, rope, attn,
+                   use_reentrant=False)
+    x = x + a @ lp["wo"]
+    gate, up = _NormLinears.apply(x, lp["post_ln"], eps, 2, lp["w_gate"],
+                                  lp["w_up"])
+    return x + _SwiGLUDown.apply(gate, up, lp["w_down"])
+
+
+def _decoder_layer_full(cfg, lp, x, rope, attn):
+    return _decoder_layer(cfg, lp, x, rope, attn=attn)[0]
+
+
+def _scan_layers(cfg, stacked, x, rope, attn=_attention):
+    """The causal decoder stack over the stacked [L, ...] parameters
+    (the reference's ``jax.lax.scan``): a loop over layers. The stacks
+    are unbound once, so each one's gradient comes back in one copy.
+    With ``cfg.recompute`` each layer is rematerialized in the backward
+    (``torch.utils.checkpoint``, non-reentrant): "full" recomputes the
+    whole layer, "core_attn" is :func:`_decoder_layer_core_attn`."""
+    layers = {n: w.unbind(0) for n, w in stacked.items()}
+    for i in range(cfg.num_hidden_layers):
+        lp = {n: w[i] for n, w in layers.items()}
+        if not cfg.recompute:
+            x = _decoder_layer_full(cfg, lp, x, rope, attn)
+        elif cfg.recompute_granularity == "full":
+            x = checkpoint(_decoder_layer_full, cfg, lp, x, rope, attn,
+                           use_reentrant=False)
+        else:
+            x = _decoder_layer_core_attn(cfg, lp, x, rope, attn)
+    return x
+
+
+def _llama_forward(cfg, stacked, embed, final_norm, lm_head, token_ids,
+                   key_mask=None, attn=_attention):
+    """Logits [b, s, V] for token ids [b, s]: embedding, the decoder
+    stack, the final norm and the head. Without ``key_mask`` the
+    attention is causal through ``attn`` and the stack recomputes as
+    ``cfg.recompute`` says (:func:`_scan_layers`); ``key_mask`` [b, s]
+    (1 = real token, left-padded rows) excludes pad keys instead.
+    Positions are plain ``arange`` either way: rope is relative, so only
+    the key exclusion carries the padding."""
+    b, s = token_ids.shape
+    positions = torch.arange(s, device=token_ids.device)[None, :] \
+        .expand(b, s)
+    rope = _rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
+    x = F.embedding(token_ids, embed)
+    if key_mask is None:
+        x = _scan_layers(cfg, stacked, x, rope, attn)
+    else:
+        for i in range(cfg.num_hidden_layers):
+            x = _decoder_layer(cfg, _layer(stacked, i), x, rope,
+                               key_mask)[0]
+    return _rms(x, final_norm, cfg.rms_norm_eps) @ lm_head
+
+
+def llama_loss_fn(model, input_ids, labels):
+    """Causal LM loss, the reference's: logits[:, :-1] scored against
+    labels[:, 1:] with ``ignore_index=-100``, the mean over the labels
+    kept. (The reference adds MoE's router penalty; MoE is not ported.)"""
+    logits = model(input_ids)
+    vocab = logits.shape[-1]
+    return cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                         labels[:, 1:].reshape(-1), ignore_index=-100)
 
 
 def _layer(stacked, i):
@@ -225,7 +408,9 @@ class LlamaForCausalLM(nn.Module):
     Weights are drawn from ``generator`` (default: seed 0 on
     ``device``) as the reference draws them: N(0, 0.02) for matrices,
     ones for norms, zeros for attention biases. On the ``meta`` device
-    they are left undrawn, for a checkpoint to fill."""
+    they are left undrawn, for a checkpoint to fill. They require grad,
+    as trainable parameters do; the serving engine runs under
+    ``torch.no_grad()`` and builds no graph."""
 
     def __init__(self, config: LlamaConfig | str = "tiny", *, dtype=None,
                  device=DEFAULT_DEVICE, generator=None):
@@ -235,7 +420,7 @@ class LlamaForCausalLM(nn.Module):
         if config.num_experts > 0:
             raise NotImplementedError(
                 "mixture-of-experts Llama is not ported yet (ROADMAP.md "
-                "Queue 1, item 5: training path with MoE)")
+                "Queue 1, item 8: mixture of experts)")
         self.config = cfg = config
         dtype = _DTYPES[cfg.dtype] if dtype is None else dtype
         if generator is None and torch.device(device).type != "meta":
@@ -255,7 +440,7 @@ class LlamaForCausalLM(nn.Module):
                 t.zero_()
             else:
                 t.normal_(0.0, 0.02, generator=generator)
-            return nn.Parameter(t, requires_grad=False)
+            return nn.Parameter(t)
 
         self.embed_tokens = mk((cfg.vocab_size, d))
         layers = {"wq": mk((L, d, h * hd)), "wk": mk((L, d, kvh * hd)),
@@ -282,24 +467,16 @@ class LlamaForCausalLM(nn.Module):
         head = self.embed_tokens.T if self.lm_head is None else self.lm_head
         return stacked, self.embed_tokens, self.final_norm, head
 
-    @torch.no_grad()
     def forward(self, input_ids, attention_mask=None):
-        """Logits [b, s, V] for token ids [b, s]; ``attention_mask``
-        [b, s] (1 = real token) excludes pad keys."""
-        stacked, embed, fnorm, head = self.weights()
-        b, s = input_ids.shape
-        key_mask = torch.ones((b, s), dtype=torch.bool,
-                              device=input_ids.device) \
-            if attention_mask is None else attention_mask.bool()
-        positions = torch.arange(s, device=input_ids.device)[None, :] \
-            .expand(b, s)
-        rope = _rope_cos_sin(positions, self.config.rope_theta,
-                             self.config.head_dim)
-        x = embed[input_ids]
-        for i in range(self.config.num_hidden_layers):
-            x, _, _ = _decoder_layer(self.config, _layer(stacked, i), x,
-                                     rope, key_mask)
-        return _rms(x, fnorm, self.config.rms_norm_eps) @ head
+        """Logits [b, s, V] for token ids [b, s]. Without
+        ``attention_mask`` this is the training forward (causal FA2,
+        recompute as configured); ``attention_mask`` [b, s] (1 = real
+        token) excludes pad keys. Differentiable when the parameters
+        require grad."""
+        key_mask = None if attention_mask is None \
+            else attention_mask.bool()
+        return _llama_forward(self.config, *self.weights(), input_ids,
+                              key_mask)
 
 
 def _sample(logits, temperature, top_k, generator=None):

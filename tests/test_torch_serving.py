@@ -115,13 +115,18 @@ def _pools(ref, n_blocks=12, bs=8, seed=3):
 
 
 def test_import_leaves_jax_out():
-    """The port, all of the slice imported, loads neither JAX nor the
-    JAX package."""
+    """The port, all of its slices imported (serving and training),
+    loads neither JAX nor the JAX package."""
     code = ("import sys, paddle_tpu_torch;"
             "assert 'torch' not in sys.modules;"
             "import paddle_tpu_torch.inference.serving,"
             " paddle_tpu_torch.inference.spec_decode,"
             " paddle_tpu_torch.kernels.paged_attention,"
+            " paddle_tpu_torch.kernels.flash_attention,"
+            " paddle_tpu_torch.models.llama,"
+            " paddle_tpu_torch.nn.functional,"
+            " paddle_tpu_torch.optimizer,"
+            " paddle_tpu_torch.jit,"
             " paddle_tpu_torch.convert;"
             "bad = [m for m in sys.modules if m == 'jax' or"
             " m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu'];"
