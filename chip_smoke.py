@@ -2,25 +2,32 @@
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one
 NVIDIA card: builds its CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version, serves requests through
-``DecodeEngine`` at the full width of llama3-8b, and trains bench.py's
-default configuration (llama3-8b layer width, 2 layers) through
-``TrainStep``.
+``DecodeEngine`` at the full width of llama3-8b (without a mesh, and on
+a one-device tensor-parallel mesh whose steps are single mixed
+launches), and trains bench.py's default configuration (llama3-8b layer
+width, 2 layers) through ``TrainStep``.
 
     python3 chip_smoke.py            # on a machine with a CUDA card
     python3 chip_smoke.py --cpu      # rehearsal: debug and tiny
                                      # presets, plain versions, no
                                      # kernel, no result
+    python3 chip_smoke.py --profile  # also torch.profiler splits of a
+                                     # decode step, a mixed step and a
+                                     # train step
 
 Phases, each printed as it ends:
   1. the card's name and power limit; every kernel built (one nvcc per
-     source, the four sources at once: paged_decode, paged_decode_int8,
-     flash_fwd, flash_bwd), with the build seconds and ptxas's register
-     and spill counts; TF32 off for every fp32 product;
+     source, the five sources at once: paged_decode, paged_decode_int8,
+     mixed_paged, flash_fwd, flash_bwd), with the build seconds and
+     ptxas's register and spill counts; TF32 off for every fp32 product;
   2. each kernel against its plain version at the shapes the main path
      gives it: max-abs error, and its time beside the plain version's,
      one PyTorch library call's and the card's bound for the same work
      (paged_decode at bs 16; paged_decode_int8 at bs 16 and 32, rows of
-     1, 1999, 512 and 0 keys, a poisoned NULL page);
+     1, 1999, 512 and 0 keys, a poisoned NULL page; mixed_paged at
+     T=128 with rows (q_len, kv_len) of (128, 1536), (1, 1999), (5, 512)
+     and (0, 0), and a decode-only T=16 shape, the NULL page poisoned
+     with 1e3 and then with NaN);
   3. a small input served on the card and on the CPU with the same
      weights: identical greedy tokens;
   4. fp KV serving: llama3-8b (32 layers, bf16, random weights from
@@ -57,7 +64,27 @@ Phases, each printed as it ends:
      and 10 timed steps with the counts zeroed just before: tokens/s,
      MFU by bench.py's formula, peak memory, a falling loss, and each
      FA2 kernel launched once per layer and step (the forward twice:
-     "core_attn" recomputes it).
+     "core_attn" recomputes it);
+ 10. (run after phase 6) the tensor-parallel mesh engine at llama3-8b
+     on phase 4's model:
+     DecodeEngine(capacity=4, s_max=1600, block_size=16,
+     mesh=make_tp_mesh(1), chunked_prefill=True, prefill_chunk=128,
+     spec_decode=True) serves phase 5's 8 requests and 2 of repeating
+     prompts, 16 new tokens each; every step is one mixed step. Counts
+     zeroed just before and read just after: mixed_paged launched once
+     per layer and mixed step, paged_decode never. Decode tokens/s, the
+     median mixed-step wall at T=16 and T=128, device calls, peak
+     memory; one mixed step holding a 128-token chunk beside decode
+     lanes is replayed with the kernel and the plain attention (bf16:
+     every layer's attention within tolerance, the engine's tokens
+     reproduced, argmax flips counted; fp32: every layer within 2e-5,
+     equal argmaxes at every valid slot); with --profile the replayed
+     step's device time is split into the mixed kernel, GEMMs and rest;
+ 10a. the tiny preset in fp32 behind the mesh engine (chunked prefill,
+     speculative decoding): identical tokens and counters on the card
+     at tp=1, on the card at tp=2 (two ranks on one device: the kernel
+     on kv-head shards) and on the CPU at tp=2, and identical tokens
+     without a mesh.
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -336,6 +363,156 @@ def phase_kernels_int8(on_card, seed):
             out[(name, bs)] = dict(max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=lib_ms)
+    return out
+
+
+# -- phase 2: mixed prefill-chunk + decode kernel against its plain version ---
+
+MIXED_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+MIXED_TOL_WHY = ("max-abs error over the valid query slots; fp32: the "
+                 "kernel multiplies by 1/sqrt(hd) where the plain version "
+                 "divides, and sums in other orders (the reference's own "
+                 "2e-5); bf16: times max(1, largest |value|), the same "
+                 "arithmetic on bf16 inputs")
+
+
+def mixed_case(dtype, device, seed, rows, T):
+    """The mixed kernel at llama3-8b shapes: B=len(rows), kvh=8, G=4,
+    hd=128, bs=16; ``rows`` of (q_len, kv_len) over scattered pages. The
+    NULL page holds +1e3 keys and -1e3 values: a read of it within a
+    row's length would show."""
+    B, kvh, G, hd, bs = len(rows), 8, 4, 128, 16
+    q_lens = np.asarray([r[0] for r in rows], np.int32)
+    kv_lens = np.asarray([r[1] for r in rows], np.int32)
+    mb = -(-int(kv_lens.max()) // bs)
+    n_pages = 1 + sum(-(-int(n) // bs) for n in kv_lens) + 64
+    rng = np.random.RandomState(seed)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((B, mb), np.int32)
+    for b in range(B):
+        for j in range(-(-int(kv_lens[b]) // bs)):
+            table[b, j] = free.pop()
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, T, kvh, G, hd), generator=g, device=device).to(dtype)
+    kp, vp = (torch.randn((n_pages, bs, kvh, hd), generator=g,
+                          device=device).to(dtype) for _ in range(2))
+    kp[0], vp[0] = 1e3, -1e3
+    return (q, kp, vp, torch.as_tensor(table, device=device),
+            torch.as_tensor(kv_lens, device=device),
+            torch.as_tensor(q_lens, device=device))
+
+
+def valid_slots(q_lens, T):
+    """[B, T] mask of the real query slots of a mixed launch."""
+    return torch.arange(T, device=q_lens.device)[None, :] < q_lens[:, None]
+
+
+def mixed_bound_ms(q, table, kv_lens, q_lens):
+    """Least time for the work this input needs: each row's resident K
+    and V read once, the valid queries read and their outputs written,
+    table and lengths read; 4 flops per (valid query head, visible key,
+    dim) for QK^T and PV, where query i of a row sees kv_len - q_len + i
+    + 1 keys."""
+    B, T, kvh, G, hd = q.shape
+    elt = q.element_size()
+    kv, ql = kv_lens.tolist(), q_lens.tolist()
+    visible = sum(max(0, n - qn + i + 1) for n, qn in zip(kv, ql)
+                  for i in range(qn))
+    nbytes = (2 * sum(kv) * kvh * hd * elt + sum(ql) * kvh * G * hd
+              * (elt + 4) + table.numel() * 4 + 2 * B * 4)
+    flops = 4 * visible * kvh * G * hd
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_FLOPS[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def sdpa_mixed_yardstick(q, kp, vp, table, kv_lens, q_lens):
+    """One PyTorch library call for the same function: gather the pages,
+    then scaled_dot_product_attention with each query's causal key mask
+    (bool) over grouped heads. Timed only; the port never calls it."""
+    B, T, kvh, G, hd = q.shape
+    mb, bs = table.shape[1], kp.shape[1]
+    idx = table.reshape(-1).long()
+    ck = kp[idx].reshape(B, mb * bs, kvh, hd).transpose(1, 2)
+    cv = vp[idx].reshape(B, mb * bs, kvh, hd).transpose(1, 2)
+    pos = (kv_lens[:, None] - q_lens[:, None]
+           + torch.arange(T, device=q.device)[None, :])
+    j = torch.arange(mb * bs, device=q.device)[None, None, :]
+    mask = ((j <= pos[:, :, None]) & (j < kv_lens[:, None, None]))[:, None]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.permute(0, 2, 3, 1, 4).reshape(B, kvh * G, T, hd), ck, cv,
+        attn_mask=mask, enable_gqa=True)
+    return out.reshape(B, kvh, G, T, hd).permute(0, 3, 1, 2, 4)
+
+
+MIXED_ROWS = {128: ((128, 1536), (1, 1999), (5, 512), (0, 0)),
+              16: ((1, 1999), (1, 1536), (1, 512), (0, 0))}
+
+
+def phase_kernels_mixed(on_card, seed):
+    """The mixed kernel against mixed_attn_reference on the valid query
+    slots, at T=128 (a 128-token chunk at offset 1408, a decode row, a
+    verify window of 5 and an idle row) and at the decode-only T=16, in
+    bf16 and fp32. Idle rows are exact zeros. With NaN in the NULL page
+    the kernel's output is bit-identical. Each shape is timed beside its
+    bound, the plain version and gather + SDPA."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    device = "cuda" if on_card else "cpu"
+    out = {}
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
+        if on_card else None
+    flush = (lambda: flush_buf.zero_()) if on_card else None
+    say("mixed", tolerance=repr(MIXED_TOL_WHY))
+    for T, rows in MIXED_ROWS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            args = mixed_case(dtype, device, seed, rows, T)
+            got = pa.mixed_paged_attention(*args)
+            want = pa.mixed_attn_reference(*args)
+            if on_card:
+                torch.cuda.synchronize()
+            valid = valid_slots(args[5], T)
+            check(got.dtype == torch.float32 and got.shape == want.shape,
+                  "mixed kernel output is fp32 of q's shape")
+            check(bool(torch.isfinite(got).all()),
+                  "mixed kernel output is finite")
+            check(bool((got[3] == 0).all()), "kv_len 0 row gives zeros")
+            err = float((got - want)[valid].abs().max())
+            scale = max(1.0, float(want[valid].abs().max()))
+            name = str(dtype).replace("torch.", "")
+            tol = MIXED_TOL[dtype] * (scale if dtype == torch.bfloat16
+                                      else 1.0)
+            say("mixed", name="mixed_paged", dtype=name, T=T,
+                rows=json.dumps(rows).replace(" ", ""), max_abs_err=err,
+                tol=tol)
+            check(err <= tol, f"mixed_paged {name} T={T} max-abs {err} "
+                              f"<= {tol}")
+            if not on_card:
+                continue            # the plain version multiplies 0 x NaN
+            kp_nan, vp_nan = args[1].clone(), args[2].clone()
+            kp_nan[0], vp_nan[0] = float("nan"), float("nan")
+            same_nan = bool(torch.equal(pa.mixed_paged_attention(
+                args[0], kp_nan, vp_nan, *args[3:]), got))
+            say("mixed", name="mixed_paged", dtype=name, T=T,
+                nan_null_page_identical=same_nan)
+            check(same_nan, "NaN in the NULL page changes no output")
+            ms = cuda_ms(lambda: pa.mixed_paged_attention(*args),
+                         flush=flush)
+            plain_ms = cuda_ms(lambda: pa.mixed_attn_reference(*args),
+                               flush=flush)
+            lib_ms = cuda_ms(lambda: sdpa_mixed_yardstick(*args),
+                             flush=flush)
+            lib = sdpa_mixed_yardstick(*args)
+            lib_err = float((lib.float() - want)[valid].abs().max())
+            bound_ms, bound_by = mixed_bound_ms(args[0], args[3], args[4],
+                                                args[5])
+            say("mixed", name="mixed_paged", dtype=name, T=T, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_max_abs_err=lib_err, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms)
+            out[(name, T)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=lib_ms)
     return out
 
 
@@ -787,6 +964,303 @@ def phase_spec(on_card, model, args):
         tokens_per_s=round(sum(r.max_new for r in reqs) / wall, 2))
 
 
+# -- phase 10: the tensor-parallel mesh engine -------------------------------
+
+def mesh_requests(vocab, seed):
+    """Phase 5's 8 requests and 2 whose prompts repeat a 32-token
+    pattern four times (drafts to verify), 16 new tokens each."""
+    waves = int8_requests(vocab, seed)
+    rng = np.random.RandomState(seed + 3)
+    rep = [(np.tile(rng.randint(1, vocab, (32,)), 4).astype(np.int32), 16)
+           for _ in range(2)]
+    return [waves[0] + rep, waves[1]]
+
+
+def phase_mesh(on_card, model, args):
+    """The mesh engine at the main path's width on a one-device tp mesh,
+    with chunked prefill and speculative decoding: every engine step is
+    one mixed step. The steps are timed by wrapping mixed_paged_step
+    (synchronised), and the first step that holds a 128-token chunk
+    beside the most decode lanes is recorded for the replay."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.inference.sharding import make_tp_mesh
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import llama as ll
+    cfg = model.config
+    device = "cuda" if on_card else "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = make_tp_mesh(1) if on_card else make_tp_mesh(1, devices=["cpu"])
+    eng = DecodeEngine(model, capacity=4, s_max=1600, block_size=16,
+                       mesh=mesh, chunked_prefill=True, prefill_chunk=128,
+                       spec_decode=True)
+    walls, snap = {}, {}
+    step = ll.mixed_paged_step
+
+    def timed_step(cfg_, st, embed, fnorm, head, ids, q_lens, kv_lens,
+                   tables, kp, vp, *scales, attn):
+        ql = q_lens.tolist()
+        lanes = [i for i, r in enumerate(eng._rows)
+                 if r is not None and "pf_seq" not in r and ql[i] > 0]
+        record = 128 in ql and len(lanes) > len(snap.get("lanes", ()))
+        if record:          # pools to host memory: out of the peak
+            snap.update(lanes=lanes, ids=ids.clone(), q_lens=q_lens.clone(),
+                        kv_lens=kv_lens.clone(), tables=tables.clone(),
+                        kp=kp[0].to("cpu", copy=True),
+                        vp=vp[0].to("cpu", copy=True))
+        sync()
+        t = time.perf_counter()
+        preds = step(cfg_, st, embed, fnorm, head, ids, q_lens, kv_lens,
+                     tables, kp, vp, *scales, attn=attn)
+        sync()
+        walls.setdefault(ids.shape[1], []).append(time.perf_counter() - t)
+        if record:
+            snap["preds"] = preds.clone()
+        return preds
+
+    waves = mesh_requests(cfg.vocab_size, args.seed)
+    gc.collect()                # earlier phases' engines hold cycles
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ll.mixed_paged_step = timed_step
+    try:
+        pa.launch_counts.clear()
+        reqs, t_decode, t_admit = drive(eng, waves, on_card)
+        launches = dict(pa.launch_counts)
+    finally:
+        ll.mixed_paged_step = step
+    st = eng.stats()
+    mixed_steps = sum(len(w) for w in walls.values())
+    for r in reqs:
+        check(r.error is None, f"request failed: {r.error!r}")
+        res = r.wait(timeout=1)
+        check(res.size == r.ids.size + r.max_new
+              and bool(((res >= 0) & (res < cfg.vocab_size)).all()),
+              "each request returns prompt + its 16 tokens")
+    L = cfg.num_hidden_layers
+    check(mixed_steps == st["device_steps"] > 0,
+          f"every engine step was a mixed step ({mixed_steps} of "
+          f"{st['device_steps']})")
+    if on_card:
+        check(launches.get("mixed_paged", 0) == L * mixed_steps > 0,
+              f"mixed_paged launched {launches.get('mixed_paged', 0)} "
+              f"times, expected layers x mixed steps = {L * mixed_steps}")
+        check(launches.get("paged_decode", 0) == 0,
+              "no paged-decode launch: no step left the mixed path")
+    check(st["prefill_chunks"] >= 12 + 8 + 4,
+          f"long prompts went in by chunks ({st['prefill_chunks']})")
+    check(st["prefix_hit_tokens"] >= 48,
+          f"the shared prefix was served from the cache "
+          f"({st['prefix_hit_tokens']} tokens)")
+    check(bool(snap), "a 128-token chunk ran beside a decode lane")
+    decode_tokens = sum(r.max_new - 1 for r in reqs)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    med = {T: round(1e3 * float(np.median(w)), 3)
+           for T, w in sorted(walls.items())}
+    say("mesh", requests=len(reqs), retired=st["retired"],
+        mesh_shape=json.dumps(st["mesh_shape"]).replace(" ", ""),
+        mixed_steps=mixed_steps,
+        steps_by_window=json.dumps({T: len(w) for T, w in
+                                    sorted(walls.items())}).replace(" ", ""),
+        median_step_ms_by_window=json.dumps(med).replace(" ", ""),
+        device_calls=st["device_calls"], prefill_chunks=st["prefill_chunks"],
+        prefix_hit_tokens=st["prefix_hit_tokens"],
+        spec_proposed=st["spec"]["proposed"],
+        spec_accepted=st["spec"]["accepted"],
+        launches=json.dumps(launches), decode_s=round(t_decode, 4),
+        admit_s=round(t_admit, 4),
+        decode_tokens_per_s=round(decode_tokens / t_decode, 2),
+        peak_mem_gib=round(peak / 2 ** 30, 3))
+    del eng
+    gc.collect()
+    replay_mixed_step(cfg, model, snap, device)
+    if args.profile:
+        profile_mixed_step(cfg, model, snap, on_card)
+    return launches
+
+
+def replay_mixed_step(cfg, model, snap, device):
+    """Replay the recorded mixed step on copies of its pools.
+
+    In bf16, as the engine ran it: every layer's kernel output is held
+    against the plain version on the same inputs (MIXED_TOL), and the
+    replay's argmax equals the engine's at every valid slot. The bf16
+    argmaxes of the kernel step and the plain step are counted, not
+    held: the kernel's fp32 sums (an online softmax over 64-key tiles)
+    differ from the plain version's by a few 1e-6 per layer, each such
+    difference can flip a bf16 rounding of the attention output, and
+    the flips grow over 32 layers of random weights (on an H100, 11 of
+    131 slots, 1 of the 3 emitted ones, with every layer within 4e-6).
+    In fp32, weights and pools upcast, every layer's kernel output is
+    held within 2e-5 over the valid slots and the argmaxes are equal at
+    every valid slot."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models import llama as ll
+    T = snap["ids"].shape[1]
+    valid = valid_slots(snap["q_lens"], T)
+    emitted = torch.zeros_like(valid)
+    emitted[snap["lanes"]] = valid[snap["lanes"]]      # the decode lanes
+    errs = []
+    dev_snap = {k: snap[k].to(device) for k in ("kp", "vp")}
+
+    def kernel_checked(q, kp, vp, tab, kvl, ql, kv_scales=None):
+        out = pa.mixed_paged_attention(q, kp, vp, tab, kvl, ql)
+        want = pa.mixed_attn_reference(q, kp, vp, tab, kvl, ql)
+        errs.append(float((out - want)[valid].abs().max()))
+        return out
+
+    def plain(q, kp, vp, tab, kvl, ql, kv_scales=None):
+        return pa.mixed_attn_reference(q, kp, vp, tab, kvl, ql)
+
+    def step(weights, dtype, attn):
+        with torch.no_grad():
+            return ll.mixed_paged_step(
+                cfg, *weights, snap["ids"], snap["q_lens"], snap["kv_lens"],
+                snap["tables"], dev_snap["kp"].to(dtype, copy=True),
+                dev_snap["vp"].to(dtype, copy=True), attn=attn)
+
+    w16 = model.weights()
+    dt16 = w16[1].dtype
+    k16 = step(w16, dt16, kernel_checked)
+    errs16, errs[:] = list(errs), []
+    p16 = step(w16, dt16, plain)
+    engine_same = bool((k16 == snap["preds"])[valid].all())
+    say("mesh", replay=str(dt16).replace("torch.", ""),
+        q_lens=snap["q_lens"].tolist(), kv_lens=snap["kv_lens"].tolist(),
+        layers_checked=len(errs16), attention_max_abs_err=max(errs16),
+        valid_slots=int(valid.sum()), emitted_slots=int(emitted.sum()),
+        argmax_equal_engine=engine_same,
+        slots_differing_kernel_vs_plain=int(((k16 != p16) & valid).sum()),
+        emitted_differing_kernel_vs_plain=int(((k16 != p16) & emitted)
+                                              .sum()))
+    check(len(errs16) == cfg.num_hidden_layers
+          and max(errs16) <= MIXED_TOL.get(dt16, MIXED_TOL[torch.float32]),
+          "every layer's attention agrees with the plain version")
+    check(engine_same, "the engine's tokens = the kernel replay's argmax")
+    st, embed, fnorm, head = w16
+    w32 = ({n: w.float() for n, w in st.items()}, embed.float(),
+           fnorm.float(), head.float())
+    k32 = step(w32, torch.float32, kernel_checked)
+    p32 = step(w32, torch.float32, plain)
+    same32 = bool((k32 == p32)[valid].all())
+    say("mesh", replay="float32", layers_checked=len(errs),
+        attention_max_abs_err=max(errs), tol=MIXED_TOL[torch.float32],
+        argmax_equal_kernel_plain=same32)
+    check(len(errs) == cfg.num_hidden_layers
+          and max(errs) <= MIXED_TOL[torch.float32],
+          "every layer's fp32 attention agrees with the plain version")
+    check(same32, "fp32 argmaxes equal with kernel and plain attention")
+    del w32
+
+
+def profile_mixed_step(cfg, model, snap, on_card):
+    """The recorded mixed step under torch.profiler: host wall against
+    summed device kernel time, split into the mixed kernel, cuBLAS's
+    GEMMs and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models import llama as ll
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    pools = [snap[k].to(snap["ids"].device) for k in ("kp", "vp")]
+
+    def run():
+        with torch.no_grad():
+            ll.mixed_paged_step(cfg, *model.weights(), snap["ids"],
+                                snap["q_lens"], snap["kv_lens"],
+                                snap["tables"], pools[0].clone(),
+                                pools[1].clone()).cpu()
+
+    run()                                   # warm
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t
+    kernels, dev_us, n = device_kernels(prof)
+    mixed_us = sum(e.self_device_time_total for e in kernels
+                   if "mixed_paged" in e.key)
+    gemm_us = sum(e.self_device_time_total for e in kernels
+                  if "nvjet" in e.key or "gemm" in e.key.lower())
+    say("profile", what="mixed_step", T=int(snap["ids"].shape[1]),
+        q_lens=snap["q_lens"].tolist(), wall_ms=round(wall * 1e3, 3),
+        device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
+        device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
+        mixed_kernel_ms=round(mixed_us / 1e3, 3),
+        gemm_kernels_ms=round(gemm_us / 1e3, 3),
+        other_kernels_ms=round((dev_us - mixed_us - gemm_us) / 1e3, 3))
+    for e in kernels[:8]:
+        say("profile", what="mixed_step",
+            kernel=e.key[:60].replace(" ", "_"), count=e.count,
+            device_ms=round(e.self_device_time_total / 1e3, 3))
+
+
+MESH_COUNTERS = ("device_steps", "device_calls", "prefill_chunks",
+                 "prefix_hit_tokens", "prefills", "retired")
+
+
+def phase_mesh_small(on_card, seed):
+    """The tiny preset (8 heads, 4 kv heads of 32) in fp32 behind the
+    mesh engine with chunked prefill and speculative decoding, from the
+    same weights: on the card without a mesh, at tp=1 and at tp=2 (two
+    ranks on one device: the kernel runs on kv-head shards, 2 kv heads
+    and G=2 each), and on the CPU at tp=2. Tokens identical across all
+    four; counters identical across the three mesh runs (the run
+    without a mesh steps otherwise)."""
+    from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.inference.sharding import make_tp_mesh
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    dev = "cuda:0" if on_card else "cpu"
+    cpu_model = LlamaForCausalLM(
+        "tiny", device="cpu", generator=torch.Generator().manual_seed(seed))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.RandomState(seed + 4)
+    wave = [(rng.randint(1, 1024, (n,)).astype(np.int32), mn)
+            for n, mn in ((9, 16), (17, 16), (40, 12), (70, 10))]
+    wave.append((np.tile(rng.randint(1, 1024, (6,)), 4).astype(np.int32),
+                 16))
+    kw = dict(capacity=4, s_max=128, chunk=4, block_size=8,
+              chunked_prefill=True, prefill_chunk=16, spec_decode=True)
+    runs = {}
+    for name, model, mesh in (
+            ("card_none", card_model, None),
+            ("card_tp1", card_model, make_tp_mesh(1, devices=[dev])),
+            ("card_tp2", card_model, make_tp_mesh(2, devices=[dev, dev])),
+            ("cpu_tp2", cpu_model, make_tp_mesh(2, devices=["cpu", "cpu"]))):
+        eng = DecodeEngine(model, mesh=mesh, **kw)
+        pa.launch_counts.clear()
+        reqs, _, _ = drive(eng, [wave], on_card and model is card_model)
+        st = eng.stats()
+        runs[name] = ([r.wait(timeout=1) for r in reqs],
+                      {k: st[k] for k in MESH_COUNTERS}
+                      | {"spec_proposed": st["spec"]["proposed"],
+                         "spec_accepted": st["spec"]["accepted"]},
+                      dict(pa.launch_counts))
+    tokens = runs["cpu_tp2"][0]
+    same_tokens = all(np.array_equal(a, b) for run in runs.values()
+                      for a, b in zip(run[0], tokens))
+    counters = runs["cpu_tp2"][1]
+    same_counters = all(runs[n][1] == counters
+                        for n in ("card_tp1", "card_tp2"))
+    L = cpu_model.config.num_hidden_layers
+    say("mesh_small", preset="tiny", dtype="float32", tf32=False,
+        requests=len(wave), identical_tokens=same_tokens,
+        identical_counters=same_counters,
+        counters=json.dumps(counters).replace(" ", ""),
+        device_calls_no_mesh=runs["card_none"][1]["device_calls"],
+        launches_tp1=json.dumps(runs["card_tp1"][2]).replace(" ", ""),
+        launches_tp2=json.dumps(runs["card_tp2"][2]).replace(" ", ""))
+    check(same_tokens, "identical greedy tokens across the four runs")
+    check(same_counters, "identical counters on the card at tp=1 and tp=2 "
+                         "and on the CPU at tp=2")
+    if on_card:
+        steps = counters["device_steps"]
+        for name, tp in (("card_tp1", 1), ("card_tp2", 2)):
+            got = runs[name][2].get("mixed_paged", 0)
+            check(got == tp * L * steps > 0,
+                  f"{name}: mixed_paged launched {got} times, expected "
+                  f"ranks x layers x steps = {tp * L * steps}")
+
+
 # -- phase 7: FlashAttention-2 kernels against their plain versions ----------
 
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -1203,8 +1677,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after the serving phases, profile one "
-                         "decode_once with fp and with int8 pools; after "
-                         "phase 9, one train step")
+                         "decode_once with fp and with int8 pools and "
+                         "phase 10's replayed mixed step; after phase 9, "
+                         "one train step")
     args = ap.parse_args()
     args.preset = "debug" if args.cpu else "llama3-8b"
     on_card = not args.cpu
@@ -1222,8 +1697,8 @@ def main():
         kind = torch.cuda.get_device_name(0)
         say("card", kind=kind, count=torch.cuda.device_count(),
             torch=torch.__version__, cuda=torch.version.cuda, tf32=False)
-        names = ["paged_decode", "paged_decode_int8", "flash_fwd",
-                 "flash_bwd"]
+        names = ["paged_decode", "paged_decode_int8", "mixed_paged",
+                 "flash_fwd", "flash_bwd"]
         t0 = time.perf_counter()
         _build.build_all(names)
         say("build", kernels=",".join(names),
@@ -1235,6 +1710,7 @@ def main():
                           + line.strip().split("ptxas info    : ")[-1])
     kernels = phase_kernels(on_card, args.seed)
     kernels_int8 = phase_kernels_int8(on_card, args.seed)
+    kernels_mixed = phase_kernels_mixed(on_card, args.seed)
     phase_small_reference(on_card, args.seed)
     launches, model = phase_main(on_card, args)
     gc.collect()                # phase 4's engine and replay copies
@@ -1242,6 +1718,8 @@ def main():
         torch.cuda.empty_cache()
     launches_int8 = phase_int8_chunked(on_card, model, args)
     phase_spec(on_card, model, args)
+    launches_mesh = phase_mesh(on_card, model, args)
+    phase_mesh_small(on_card, args.seed)
     if args.profile:
         for kv_dtype in ("fp", "int8"):
             phase_profile(model, on_card, kv_dtype)
@@ -1266,7 +1744,12 @@ def main():
                   source=src + "paged_decode_int8.cu",
                   replaces="paddle_tpu/kernels/paged_attention.py:186",
                   launches=launches_int8.get("paged_decode_int8", 0),
-                  **kernels_int8[("bfloat16", 16)])]
+                  **kernels_int8[("bfloat16", 16)]),
+             dict(name="mixed_paged", route="cuda",
+                  source=src + "mixed_paged.cu",
+                  replaces="paddle_tpu/kernels/paged_attention.py:468",
+                  launches=launches_mesh.get("mixed_paged", 0),
+                  **kernels_mixed[("bfloat16", 128)])]
     for name, source, line in (("flash_fwd", "flash_fwd.cu", 48),
                                ("flash_dq", "flash_bwd.cu", 530),
                                ("flash_dkv", "flash_bwd.cu", 1021)):

@@ -8,7 +8,9 @@ Hopper (``kernels/csrc/``):
   block-pool KV cache, with the prefix cache, the priority scheduler,
   int8 KV, chunked prefill and self-speculative decoding; its decode
   attention runs on ``paged_decode.cu`` (``paged_decode_int8.cu`` for
-  int8 pools);
+  int8 pools). On a tensor-parallel mesh (``inference.sharding``) each
+  step's prefill chunks, verify windows and decode tokens go through
+  one mixed step whose attention runs on ``mixed_paged.cu``;
 - Llama pretraining on one card: ``models.llama.LlamaForCausalLM`` and
   ``llama_loss_fn``, ``optimizer.AdamW`` (fp32 master weights) and
   ``jit.TrainStep``, with causal attention on the FlashAttention-2

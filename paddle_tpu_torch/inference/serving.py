@@ -26,12 +26,24 @@ Options, each off by default (outputs then stay as without it):
   ``spec_max_draft`` tokens from its own history (:class:`NgramDrafter`)
   and verifies them in one position-offset prefill, accepting the
   longest prefix that greedy decoding would have produced.
+- ``mesh=`` (a ``sharding.make_tp_mesh`` mesh): tensor parallelism over
+  the mesh's ``tp`` ranks. The pools split over kv heads and the
+  weights Megatron style, one shard per rank on its device; the
+  allocator, tables and scheduler stay on the host, once. A mesh engine
+  runs every step that holds a verify window or a prefill chunk as ONE
+  mixed step (:meth:`DecodeEngine._decode_once_mixed`, the single
+  ``mixed_paged_step`` whose attention is ``kernels.paged_attention.
+  mixed_paged_attention``); plain decode keeps the decode chunk. A
+  one-device mesh (``make_tp_mesh(1)``) gives the tokens of
+  ``mesh=None`` through the mixed path.
 
 What differs from the reference: its per-bucket compiled programs are
 plain calls here, and where it donates the pools (and int8 scales) to
 those programs the port updates them in place. Every attention read of
 a decode step goes through ``kernels.paged_attention.
-paged_decode_attention``.
+paged_decode_attention``. Where the reference lowers its programs
+through ``shard_map`` over a mesh, one controller here drives every
+rank (``inference.sharding``).
 """
 
 from __future__ import annotations
@@ -42,13 +54,16 @@ import threading
 import numpy as np
 import torch
 
-from ..kernels.paged_attention import KV_SCALE_EPS, paged_decode_attention
+from ..kernels.paged_attention import (KV_SCALE_EPS, mixed_paged_attention,
+                                       paged_decode_attention)
 from ..models import llama as _llama
 from ..observability import MetricsRegistry, RequestTrace, now as _now
 from ..utils.log import get_logger, log_event, log_kv
 from .paged_cache import BlockAllocator
 from .prefix_cache import PrefixCache
 from .scheduler import RequestScheduler, StepBudget
+from .sharding import (pool_specs, shard, shard_weights,
+                       validate_mesh_config)
 from .spec_decode import NgramDrafter
 
 __all__ = ["DecodeEngine"]
@@ -68,21 +83,38 @@ class DecodeEngine:
     Drive it with :meth:`submit` (or :meth:`admit` with a list of
     requests) and :meth:`decode_once`; each ``decode_once`` runs one
     engine step (``chunk`` greedy decode steps for every decode-ready
-    row, or one verify step per row with ``spec_decode``), retires
-    finished rows and returns the number still alive. The engine runs
-    on the model's device; ``device_steps`` counts executed decode and
-    verify steps. The options are described in the module docstring."""
+    row, one verify step per row with ``spec_decode``, or one mixed
+    step on a mesh), retires finished rows and returns the number still
+    alive. The engine runs on the model's device, or on its mesh's;
+    ``device_steps`` counts executed decode, verify and mixed steps. The
+    options are described in the module docstring."""
 
     def __init__(self, model, capacity=4, s_max=256, chunk=8, pad_id=0,
                  paged=True, block_size=16, n_blocks=None,
                  prefix_cache=True, chunked_prefill=False,
                  prefill_chunk=None, step_budget=None,
                  spec_decode=False, spec_max_draft=4, kv_dtype="fp",
-                 mesh=None):
+                 mesh=None, tp_axis="tp", seq_axis="seq"):
+        if mesh is not None and not paged:
+            raise ValueError("mesh= requires the paged engine (the block "
+                             "pools are what shards)")
         if not paged:
             raise _not_ported("the contiguous KV cache (paged=False)", 2)
+        self.mesh = mesh
+        self.tp_axis = tp_axis
+        self.seq_axis = seq_axis
+        self._tp = self._seq = 1
         if mesh is not None:
-            raise _not_ported("the sharded engine (mesh=)", 4)
+            if tp_axis not in mesh.axis_names:
+                raise ValueError(f"mesh axes {mesh.axis_names} have no "
+                                 f"tp_axis={tp_axis!r}")
+            self._tp = int(mesh.shape[tp_axis])
+            if seq_axis in mesh.axis_names:
+                self._seq = int(mesh.shape[seq_axis])
+            if self._seq > 1:
+                raise _not_ported(
+                    f"a mesh whose {seq_axis!r} extent is above 1 (the "
+                    f"page-sharded 2-D mesh)", 4)
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r} (want 'fp' or "
                              f"'int8')")
@@ -127,6 +159,14 @@ class DecodeEngine:
         self._hd = cfg.head_dim
         self.device = model.embed_tokens.device
         self._cache_dtype = model.embed_tokens.dtype
+        self._placed = None
+        if mesh is not None:
+            validate_mesh_config(cfg, self._tp, self._seq,
+                                 n_blocks=self.n_blocks)
+            # the tp ranks' devices; rank 0's holds the replicated
+            # weights, the host data and the residual stream
+            self._devices = list(mesh.devices[:self._tp])
+            self.device = self._devices[0]
         self.device_steps = 0
         self.prefills = 0
         self.resets = 0                 # construction counts as 1
@@ -227,6 +267,14 @@ class DecodeEngine:
                                       KV_SCALE_EPS, dtype=torch.float32,
                                       device=self.device)
             self._vscale = torch.full_like(self._kscale, KV_SCALE_EPS)
+        if self.mesh is not None:
+            # one kv-head shard of each pool (and scale) per rank, on its
+            # device: lists the model's serving functions take as they are
+            names = ("_kp", "_vp", "_kscale", "_vscale")[:4 if self._kv_q
+                                                          else 2]
+            for name, dim in zip(names, pool_specs(len(names))):
+                setattr(self, name, shard(getattr(self, name), dim,
+                                          self._devices))
         self._alloc = BlockAllocator(self.n_blocks)
         # int8: a recycled page must drop its last tenant's running-max
         # scale before its next write
@@ -240,6 +288,21 @@ class DecodeEngine:
 
     def _dev(self, a):
         return torch.as_tensor(a, device=self.device)
+
+    def _weights(self):
+        """(stacked, embed, final_norm, lm_head) as the serving functions
+        take them. On a mesh the stacked weights are split once per
+        engine into per-rank shards on the ranks' devices, and the rest
+        is placed on rank 0's device (the reference's
+        ``_placed_weights``)."""
+        if self.mesh is None:
+            return self.model.weights()
+        if self._placed is None:
+            st, embed, fnorm, head = self.model.weights()
+            dev = self._devices[0]
+            self._placed = (shard_weights(st, self._devices), embed.to(dev),
+                            fnorm.to(dev), head.to(dev))
+        return self._placed
 
     # -- pool plumbing ------------------------------------------------------
     def _kv_scales(self):
@@ -261,15 +324,18 @@ class DecodeEngine:
             return
         dirty = self._alloc.drain_allocated()
         if dirty:
-            idx = self._dev(np.asarray(dirty, np.int64))
-            self._kscale[:, idx] = KV_SCALE_EPS
-            self._vscale[:, idx] = KV_SCALE_EPS
+            idx = np.asarray(dirty, np.int64)
+            for a in _llama._ranks(self._kscale) + _llama._ranks(
+                    self._vscale):
+                a[:, torch.as_tensor(idx, device=a.device)] = KV_SCALE_EPS
 
     def _copy_page(self, src, dst):
         """Copy-on-write: page ``src`` into the row's private page
-        ``dst`` in every layer, with its scales on an int8 pool."""
-        for a in (self._kp, self._vp) + (self._kv_scales() or ()):
-            a[:, dst] = a[:, src]
+        ``dst`` in every layer (and rank), with its scales on an int8
+        pool."""
+        for pool in (self._kp, self._vp) + (self._kv_scales() or ()):
+            for a in _llama._ranks(pool):
+                a[:, dst] = a[:, src]
         self._c_device_calls.inc()
 
     # -- engine state -------------------------------------------------------
@@ -310,6 +376,8 @@ class DecodeEngine:
              "prefix_hit_tokens": int(self._c_prefix_hit.value),
              "device_steps": self.device_steps,
              "device_calls": int(self._c_device_calls.value),
+             "tp_degree": self._tp,
+             "seq_degree": self._seq,
              "prefills": self.prefills,
              "resets": self.resets,
              "pool": self._alloc.stats(),
@@ -317,6 +385,8 @@ class DecodeEngine:
              "prefill_backlog": self.prefill_backlog,
              "prefill_chunks": int(self._c_prefill_chunks.value),
              "kv_dtype": self.kv_dtype}
+        if self.mesh is not None:
+            s["mesh_shape"] = dict(self.mesh.shape)
         if self._cache is not None:
             s["prefix_cache"] = self._cache.stats()
         if self.spec_decode:
@@ -583,7 +653,7 @@ class DecodeEngine:
             ids[0, self.s_max - ns:] = seq
             pad = self.s_max - ns
             logits, ks, vs = _llama.masked_prefill(
-                self._cfg, *self.model.weights(), self._dev(ids).long(),
+                self._cfg, *self._weights(), self._dev(ids).long(),
                 self._dev(np.asarray([pad])))
             _llama.scatter_prefill_kv(self._kp, self._vp, ks, vs,
                                       self._dev(table_row), pad,
@@ -611,7 +681,7 @@ class DecodeEngine:
         ids = np.full((1, sc), self.pad_id, np.int32)
         ids[0, pad:] = tail
         logits = _llama.prefix_prefill(
-            self._cfg, *self.model.weights(), self._dev(ids).long(),
+            self._cfg, *self._weights(), self._dev(ids).long(),
             self._dev(np.asarray([pad])), self._dev(np.asarray([prefix_len])),
             self._kp, self._vp, self._dev(table_row),
             kv_scales=self._kv_scales(), all_logits=all_logits)
@@ -711,12 +781,23 @@ class DecodeEngine:
     def decode_once(self):
         """Run ONE engine step: with ``spec_decode`` a verify step per
         decode-ready row, else a decode chunk of ``chunk`` greedy steps
-        (under chunked prefill, after the step's prefill chunks). Collect
-        the tokens and retire finished rows (their ``wait()`` returns at
-        once). Returns the number of rows still alive."""
+        (under chunked prefill, after the step's prefill chunks). On a
+        mesh, a step that holds a verify window or a prefill chunk is
+        one mixed step instead. Collect the tokens and retire finished
+        rows (their ``wait()`` returns at once). Returns the number of
+        rows still alive."""
         if self.idle():
             return 0
         with torch.no_grad():
+            if self.mesh is not None and (
+                    self.spec_decode
+                    or (self.chunked_prefill
+                        and any(r is not None and "pf_seq" in r
+                                for r in self._rows))):
+                # every window of the step in ONE launch; plain decode
+                # with no row mid-prefill keeps the decode chunk
+                # (chunk tokens per call beat one)
+                return self._decode_once_mixed()
             if self.spec_decode:
                 return self._decode_once_spec()
             return self._decode_once_paged()
@@ -832,7 +913,7 @@ class DecodeEngine:
 
     def _decode_chunk(self):
         """``chunk`` greedy steps for every lane: tokens [chunk, B]."""
-        st, embed, fnorm, lm = self.model.weights()
+        st, embed, fnorm, lm = self._weights()
         tables = self._dev(self._tables)
         lens = self._dev(self._lens)
         tok = self._dev(self._tok).long()
@@ -1005,6 +1086,145 @@ class DecodeEngine:
         req.trace.mark("decode_chunk", n_tokens=len(out))
         if not self._finish_if_done(slot, row):
             self._lens[slot] = lens0 + len(out)
+
+    # -- the single-launch mixed step (mesh engines) ------------------------
+    def _decode_once_mixed(self):
+        """ONE device call per engine step: every decode-ready row's
+        window (its pending token and k drafts; k = 0 without
+        ``spec_decode``) and every funded prefill chunk go through a
+        single :func:`mixed_paged_step` with per-row ``q_lens``. Each
+        emitted token is the step's argmax at its position and
+        acceptance walks the same greedy chain as :meth:`_verify_row`,
+        so per-request tokens equal the per-row paths'. The schedule
+        differs (a row whose last chunk lands decodes from the NEXT
+        step; a plain decode lane advances one token per step), so the
+        counters do."""
+        def draft(slot, row):
+            return self._draft_for(slot, row) if self.spec_decode \
+                else np.zeros((0,), np.int32)
+
+        # plan: decode lanes force-charge their verify tokens, prefill
+        # chunks are funded from the rest, as on the per-row paths
+        drafts, chunk_plan = {}, []
+        if self.chunked_prefill:
+            budget = self._step_budget()
+            for slot, row in enumerate(self._rows):
+                if row is not None and "pf_seq" not in row:
+                    drafts[slot] = d = draft(slot, row)
+                    budget.take(d.size + 1, force=True)
+            slots, cands = {}, []
+            for slot, row in enumerate(self._rows):
+                if row is None or "pf_seq" not in row:
+                    continue
+                take = min(self.prefill_chunk,
+                           row["pf_seq"].size - row["pf_pos"])
+                cands.append((row["req"], take))
+                slots[id(row["req"])] = slot
+            for req, take in self._sched.plan_prefill(budget, cands):
+                chunk_plan.append((slots[id(req)], take))
+            self._h_budget.observe(budget.used)
+        for slot, row in enumerate(self._rows):
+            if row is not None and "pf_seq" not in row \
+                    and slot not in drafts:
+                drafts[slot] = draft(slot, row)
+        # grow decode lanes for this step's writes (growth may preempt
+        # other rows: the windows below take only the survivors)
+        for slot in sorted(drafts):
+            row = self._rows[slot]
+            if row is not None and "pf_seq" not in row:
+                self._grow_decode_row(slot, row, int(drafts[slot].size) + 1)
+        # LEFT-aligned windows; kv_lens include the window (scatter-then-
+        # attend); chunk lanes write through their private tables; idle
+        # lanes have q_len 0
+        windows = []
+        for slot, take in chunk_plan:
+            row = self._rows[slot]
+            if row is None or "pf_seq" not in row:
+                continue            # preempted by a decode lane's growth
+            pos0 = int(row["pf_pos"])
+            tail = np.asarray(row["pf_seq"][pos0:pos0 + take], np.int32)
+            windows.append((slot, row, "chunk", tail, pos0 + tail.size,
+                            row["pf_table"]))
+        for slot in sorted(drafts):
+            row = self._rows[slot]
+            if row is None or "pf_seq" in row:
+                continue            # preempted or failed while growing
+            tail = np.concatenate([self._tok[slot:slot + 1],
+                                   drafts[slot]]).astype(np.int32)
+            windows.append((slot, row, "decode", tail,
+                            int(self._lens[slot]) + tail.size,
+                            self._tables[slot]))
+        n_busy = self._n_live()
+        self._g_occupancy.set(n_busy)
+        if not windows:
+            return n_busy
+        B = self.capacity
+        T = self._bucket_window(max(w[3].size for w in windows))
+        ids = np.full((B, T), self.pad_id, np.int32)
+        q_lens = np.zeros((B,), np.int32)
+        kv_lens = np.zeros((B,), np.int32)
+        tabs = np.zeros((B, self._max_blocks), np.int32)
+        for slot, _, _, tail, kvl, table in windows:
+            ids[slot, :tail.size] = tail
+            q_lens[slot] = tail.size
+            kv_lens[slot] = kvl
+            tabs[slot] = table
+        self._drain_scale_resets()
+        t0 = _now()
+        with torch.profiler.record_function("engine.mixed_step"):
+            preds = _llama.mixed_paged_step(
+                self._cfg, *self._weights(), self._dev(ids).long(),
+                self._dev(q_lens), self._dev(kv_lens), self._dev(tabs),
+                self._kp, self._vp, *(self._kv_scales() or (None, None)),
+                attn=mixed_paged_attention).cpu().numpy()   # fetch = sync
+        wall = _now() - t0
+        self.device_steps += 1
+        self._c_steps.inc(1)
+        self._c_device_calls.inc()
+        self._h_chunk.observe(wall)
+        log_event("engine_mixed_step", rows=len(windows), window=T,
+                  wall_s=round(wall, 4), blocks_used=self._alloc.num_used,
+                  blocks_free=self._alloc.num_free)
+        for slot, row, kind, tail, kvl, _ in windows:
+            if self._rows[slot] is not row:
+                continue
+            req = row["req"]
+            if kind == "chunk":
+                row["pf_pos"] = int(row["pf_pos"]) + tail.size
+                self._c_prefill_chunks.inc()
+                req.trace.mark("prefill_chunk")
+                if row["pf_pos"] >= row["pf_seq"].size:
+                    # the last chunk's last real argmax is the first token
+                    resume = row.pop("pf_resume")
+                    toks = list(resume) if resume \
+                        else [int(preds[slot, tail.size - 1])]
+                    self._tables[slot] = row.pop("pf_table")
+                    self._lens[slot] = row["pf_seq"].size
+                    self._tok[slot] = toks[-1]
+                    row["toks"] = toks
+                    del row["pf_seq"], row["pf_pos"]
+                    self.prefills += 1
+                    self._c_prefills.inc()
+                    self._observe_first_token(req)
+                continue
+            # decode or verify lane: the greedy accept chain
+            k = tail.size - 1
+            out = [int(preds[slot, 0])]
+            for i in range(k):
+                if int(tail[i + 1]) != out[i]:
+                    break
+                out.append(int(preds[slot, i + 1]))
+            if self.spec_decode:
+                self._c_spec_proposed.inc(k)
+                self._c_spec_accepted.inc(len(out) - 1)
+                self._h_spec_accept.observe(len(out))
+                req.trace.mark("spec_verify")
+            row["toks"].extend(out)
+            self._tok[slot] = out[-1]
+            req.trace.mark("decode_chunk", n_tokens=len(out))
+            if not self._finish_if_done(slot, row):
+                self._lens[slot] = kvl - tail.size + len(out)
+        return self._n_live()
 
 
 class _Request:

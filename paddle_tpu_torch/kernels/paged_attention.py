@@ -22,6 +22,17 @@ and kv head ``h`` is ``code * kscale[p, h]``.
 ``csrc/paged_decode_int8.cu`` with ``kv_scales``) for CUDA tensors and
 runs :func:`paged_attn_reference` (:func:`paged_attn_reference_int8`)
 for CPU tensors.
+
+The mixed launch serves prefill chunks, verify windows and decode
+tokens of many rows at once: q [B, T, kvh, G, hd] holds each row's
+window LEFT-aligned, ``q_lens`` [B] its valid queries and ``kv_lens``
+[B] the resident keys INCLUDING the window's own (its K/V are written
+before the launch). Query i of row b sits at ``kv_lens[b] - q_lens[b]
++ i`` and attends to every resident position up to its own.
+:func:`mixed_paged_attention` launches ``csrc/mixed_paged.cu`` for CUDA
+tensors with fp pools and runs :func:`mixed_attn_reference` otherwise
+(int8 pools take that gather path on every device, as the reference's
+do).
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ __all__ = ["NULL_PAGE", "KV_SCALE_EPS", "launch_counts",
            "paged_attn_reference", "paged_attn_reference_int8",
            "int8_block_update", "gather_pages_dequant",
            "paged_decode_attention", "check_kernel_args",
+           "mixed_attn_reference", "mixed_paged_attention",
+           "verify_chunk_scores", "check_mixed_args",
            "KERNEL_HEAD_DIMS", "KERNEL_BLOCK_SIZES", "KERNEL_MAX_GROUP"]
 
 #: page id 0 is never allocated: padded block-table entries and inactive
@@ -56,6 +69,7 @@ KERNEL_MAX_GROUP = 8
 
 _KERNEL = "paged_decode"
 _KERNEL_INT8 = "paged_decode_int8"
+_KERNEL_MIXED = "mixed_paged"
 
 #: the finite "minus infinity" of the online softmax, as in the kernels
 _NEG_INF = -1e30
@@ -277,3 +291,146 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens,
                                     seq_lens)
     raise ValueError(f"paged_decode_attention: no kernel for device "
                      f"{q.device}")
+
+
+# -- the mixed prefill-chunk + decode launch ---------------------------------
+
+def mixed_attn_reference(q, k_pages, v_pages, block_table, kv_lens, q_lens,
+                         kv_scales=None):
+    """Gather the rows' pages, then one softmax under each query's
+    causal limit: the math of the reference's ``_mixed_attn_reference``
+    (``-inf`` mask, an ``isfinite`` guard, division by sqrt(hd)).
+    q [B, T, kvh, G, hd]; returns [B, T, kvh, G, hd] float32. Padding
+    queries (i >= q_lens[b]) attend to every resident key (finite
+    garbage nobody reads); a row with kv_len 0 gives exact zeros.
+    ``kv_scales`` dequantizes int8 pools on the gather."""
+    import torch
+    B, T, kvh, G, hd = q.shape
+    if kv_scales is not None:
+        ck = gather_pages_dequant(k_pages, block_table, kv_scales[0])
+        cv = gather_pages_dequant(v_pages, block_table, kv_scales[1])
+    else:
+        mb, bs = block_table.shape[1], k_pages.shape[1]
+        idx = block_table.reshape(-1).long()
+        ck = k_pages[idx].reshape(B, mb * bs, kvh, hd)
+        cv = v_pages[idx].reshape(B, mb * bs, kvh, hd)
+    dev = q.device
+    kv_lens, q_lens = kv_lens.to(dev).long(), q_lens.to(dev).long()
+    pos = (kv_lens[:, None] - q_lens[:, None]
+           + torch.arange(T, device=dev)[None, :])          # [B, T]
+    j = torch.arange(ck.shape[1], device=dev)[None, None, :]
+    ok = (j <= pos[:, :, None]) & (j < kv_lens[:, None, None])
+    s = torch.einsum("btngd,bsnd->btngs", q.float(), ck.float()) / hd ** 0.5
+    s = s.masked_fill(~ok[:, :, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isfinite(s).any(-1, keepdim=True), p,
+                    torch.zeros((), dtype=p.dtype, device=dev))
+    return torch.einsum("btngs,bsnd->btngd", p, cv.float())
+
+
+def check_mixed_args(q, k_pages, v_pages, block_table, kv_lens, q_lens):
+    """Raise ``ValueError`` unless the mixed CUDA kernel takes these
+    arguments: q [B, T, kvh, G, hd] in bf16, fp16 or fp32, pools
+    [N, bs, kvh, hd] of q's type, int32 table [B, max_blocks >= 1] and
+    lengths [B], contiguous and 16-byte aligned, one device; head dims,
+    block sizes and group sizes as the decode kernel's."""
+    import torch
+    if q.dim() != 5 or k_pages.dim() != 4:
+        raise ValueError(f"q must be [B, T, kvh, G, hd] and pages "
+                         f"[N, bs, kvh, hd]; got {tuple(q.shape)} and "
+                         f"{tuple(k_pages.shape)}")
+    B, T, kvh, G, hd = q.shape
+    N, bs, pkvh, phd = k_pages.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape):
+        raise ValueError(f"k/v pools differ: {tuple(k_pages.shape)} vs "
+                         f"{tuple(v_pages.shape)}")
+    if (pkvh, phd) != (kvh, hd):
+        raise ValueError(f"pool [.., {pkvh}, {phd}] does not match q's "
+                         f"kvh={kvh}, hd={hd}")
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"dtype {q.dtype} not supported")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(f"pools must be {q.dtype}; got {k_pages.dtype}, "
+                         f"{v_pages.dtype}")
+    if any(t.dtype != torch.int32 for t in (block_table, kv_lens, q_lens)):
+        raise ValueError("block_table, kv_lens and q_lens must be int32")
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or tuple(kv_lens.shape) != (B,) or tuple(q_lens.shape) != (B,):
+        raise ValueError(f"block_table must be [{B}, max_blocks], kv_lens "
+                         f"and q_lens [{B}]; got {tuple(block_table.shape)},"
+                         f" {tuple(kv_lens.shape)}, {tuple(q_lens.shape)}")
+    if block_table.shape[1] < 1 or T < 1:
+        raise ValueError("block_table needs a column and q a query slot")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if not 1 <= G <= KERNEL_MAX_GROUP:
+        raise ValueError(f"query group G={G} not in 1..{KERNEL_MAX_GROUP}")
+    if bs not in KERNEL_BLOCK_SIZES:
+        raise ValueError(f"block size {bs} not in {KERNEL_BLOCK_SIZES}")
+    args = (q, k_pages, v_pages, block_table, kv_lens, q_lens)
+    if any(not a.is_contiguous() for a in args):
+        raise ValueError("q, pools, block_table and lengths must be "
+                         "contiguous")
+    if any(a.data_ptr() % 16 for a in args[:3]):
+        raise ValueError("q and the pools must be 16-byte aligned")
+    if len({a.device for a in args}) != 1:
+        raise ValueError("all arguments must be on one device")
+
+
+def _bind_mixed(lib):
+    fn = lib.mixed_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def _launch_mixed(q, k_pages, v_pages, block_table, kv_lens, q_lens):
+    """Launch ``csrc/mixed_paged.cu`` on the current stream; count it."""
+    import torch
+    check_mixed_args(q, k_pages, v_pages, block_table, kv_lens, q_lens)
+    B, T, kvh, G, hd = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    fn = _build.load(_KERNEL_MIXED, _bind_mixed).mixed_paged_attention
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(a.data_ptr() for a in (q, k_pages, v_pages, block_table,
+                                           kv_lens, q_lens, out)),
+                 B, T, kvh, G, hd, k_pages.shape[1], block_table.shape[1],
+                 _build.DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5), stream)
+    if err != 0:
+        why = "unsupported arguments" if err < 0 else "cudaError_t"
+        raise RuntimeError(f"{_KERNEL_MIXED} launch failed: {why} {err}")
+    launch_counts[_KERNEL_MIXED] += 1
+    return out
+
+
+def mixed_paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_lens,
+                          kv_scales=None):
+    """Attention of a mixed batch of windows (prefill chunks, verify
+    windows, decode tokens) over a paged cache: the CUDA kernel for
+    CUDA tensors with fp pools, the plain version for CPU tensors.
+    int8 pools (``kv_scales=(kscale, vscale)``) take the plain gather
+    path on every device, as the reference's do. On CUDA with fp pools
+    it launches the kernel or raises; it never falls back."""
+    if kv_scales is not None:
+        return mixed_attn_reference(q, k_pages, v_pages, block_table,
+                                    kv_lens, q_lens, kv_scales)
+    dev = q.device.type
+    if dev == "cuda":
+        return _launch_mixed(q, k_pages, v_pages, block_table, kv_lens,
+                             q_lens)
+    if dev == "cpu":
+        return mixed_attn_reference(q, k_pages, v_pages, block_table,
+                                    kv_lens, q_lens)
+    raise ValueError(f"mixed_paged_attention: no kernel for device "
+                     f"{q.device}")
+
+
+def verify_chunk_scores(q, k_pages, v_pages, block_table, kv_lens, q_lens,
+                        kv_scales=None):
+    """Attention of speculative verify windows: row b's q_lens[b]
+    queries are its pending token and its drafts, already written at
+    positions ``kv_lens[b] - q_lens[b] .. kv_lens[b] - 1``. That is the
+    mixed launch's contract, so this is :func:`mixed_paged_attention`."""
+    return mixed_paged_attention(q, k_pages, v_pages, block_table, kv_lens,
+                                 q_lens, kv_scales=kv_scales)

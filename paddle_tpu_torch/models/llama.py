@@ -15,6 +15,14 @@ Training (:meth:`LlamaForCausalLM.forward` without a mask,
 kernels (:mod:`paddle_tpu_torch.kernels.flash_attention`) and, with
 ``recompute``, rematerializes each layer in the backward as the
 reference's ``jax.checkpoint`` policies do (:func:`_scan_layers`).
+
+Tensor parallelism (the reference's ``mp_axis=``): the serving
+functions take ``stacked``, the KV pools and their int8 scales either
+whole or as lists of per-rank shards (``inference.sharding``). Each
+layer then runs every rank's column-parallel projections and attention
+on that rank's device and sums the row-parallel products in rank order
+(:func:`_tp_layer`); one controller drives all ranks, and one rank is
+the unsharded arithmetic.
 """
 
 from __future__ import annotations
@@ -29,12 +37,13 @@ from torch.utils.checkpoint import checkpoint
 from .. import DEFAULT_DEVICE
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import (gather_pages_dequant,
+                                       mixed_paged_attention,
                                        paged_decode_attention)
 from ..nn.functional.loss import cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LLAMA_PRESETS",
            "llama_loss_fn", "masked_prefill", "scatter_prefill_kv",
-           "prefix_prefill"]
+           "prefix_prefill", "mixed_paged_step"]
 
 
 @dataclass
@@ -220,10 +229,60 @@ def _qkv(cfg, lp, y, rope):
     return q, k, v.reshape(b, s, kvh, hd)
 
 
+def _ranks(a):
+    """A tensor-parallel argument as the list of its per-rank values: a
+    list or tuple of shards as it is, one unsharded value as a list of
+    one."""
+    return list(a) if isinstance(a, (list, tuple)) else [a]
+
+
+def _like(vals, arg):
+    """Per-rank results shaped as ``arg`` was: a list for a list of
+    shards, the one value for an unsharded argument."""
+    return vals if isinstance(arg, (list, tuple)) else vals[0]
+
+
+def _rank_sum(parts, device):
+    """The ranks' row-parallel partials summed on ``device`` in rank
+    order (the reference's psum): the same result for every rank and on
+    every run. One partial is returned as it is."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
+
+
 def _mlp(cfg, lp, x):
-    """Residual SwiGLU block."""
-    y = _rms(x, lp["post_ln"], cfg.rms_norm_eps)
-    return x + (F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+    """Residual SwiGLU block; ``lp`` is one layer's parameters or a list
+    of per-rank shards (column-parallel gate and up, row-parallel
+    down)."""
+    lps = _ranks(lp)
+    y = _rms(x, lps[0]["post_ln"], cfg.rms_norm_eps)
+    parts = []
+    for w in lps:
+        yr = y.to(w["w_gate"].device)
+        parts.append((F.silu(yr @ w["w_gate"]) * (yr @ w["w_up"]))
+                     @ w["w_down"])
+    return x + _rank_sum(parts, x.device)
+
+
+def _tp_layer(cfg, lps, x, rope, attend):
+    """One decoder layer over the ranks of ``lps`` (one layer's
+    parameters per rank; a list of one for an unsharded layer). Each
+    rank projects the normed input on its own device, and
+    ``attend(r, q, k, v)`` gives the attention of its heads (any shape
+    of [b, s, h_r * hd] elements, in x's dtype); the wo products and the
+    MLP's are summed over the ranks in rank order. x stays on its
+    device."""
+    b, s, _ = x.shape
+    y = _rms(x, lps[0]["input_ln"], cfg.rms_norm_eps)
+    parts = []
+    for r, lp in enumerate(lps):
+        dev = lp["wq"].device
+        q, k, v = _qkv(cfg, lp, y.to(dev), tuple(c.to(dev) for c in rope))
+        parts.append(attend(r, q, k, v).reshape(b, s, -1) @ lp["wo"])
+    x = x + _rank_sum(parts, x.device)
+    return _mlp(cfg, lps, x)
 
 
 def _attention(q, k, v, causal=True):
@@ -238,14 +297,18 @@ def _decoder_layer(cfg, lp, x, rope, key_mask=None, attn=_attention):
     post-rope K and V for the decode cache. Without ``key_mask`` the
     attention is causal through ``attn`` (the training path); with it,
     over the valid keys of each row only (left-padded serving
-    prefill)."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
-                   rope)
-    a = attn(q, k, v) if key_mask is None \
-        else _attention_keymask(q, k, v, key_mask)
-    x = x + a.reshape(b, s, -1) @ lp["wo"]
-    return _mlp(cfg, lp, x), k, v
+    prefill). ``lp`` may be a list of per-rank shards; k and v then
+    come back as per-rank lists."""
+    kv = []
+
+    def attend(r, q, k, v):
+        kv.append((k, v))
+        if key_mask is None:
+            return attn(q, k, v)
+        return _attention_keymask(q, k, v, key_mask.to(q.device))
+
+    x = _tp_layer(cfg, _ranks(lp), x, rope, attend)
+    return x, _like([k for k, _ in kv], lp), _like([v for _, v in kv], lp)
 
 
 class _NormLinears(torch.autograd.Function):
@@ -494,26 +557,34 @@ def _sample(logits, temperature, top_k, generator=None):
                              generator=generator)[:, 0]
 
 
+
+
 def masked_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
                    pad_len, last_index=None):
     """Serving prefill of left-padded ``ids`` [b, s] with per-row
     ``pad_len`` [b] -> (logits [b, V] fp32 at ``last_index`` (default:
-    the last column), ks, vs [L, b, s, kvh, hd] post-rope K/V)."""
+    the last column), ks, vs [L, b, s, kvh, hd] post-rope K/V). With
+    ``stacked`` a list of per-rank shards, ks and vs are per-rank lists
+    of the ranks' kv heads, matching the pools they go into."""
+    stacks = _ranks(stacked)
     b, s0 = ids.shape
     cols = torch.arange(s0, device=ids.device)[None, :]
     positions = torch.clamp(cols - pad_len[:, None], min=0)
     rope = _rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
     key_mask = cols >= pad_len[:, None]
     x = embed[ids]
-    ks, vs = [], []
+    ks, vs = [[] for _ in stacks], [[] for _ in stacks]
     for i in range(cfg.num_hidden_layers):
-        x, k, v = _decoder_layer(cfg, _layer(stacked, i), x, rope,
-                                 key_mask)
-        ks.append(k)
-        vs.append(v)
+        x, k, v = _decoder_layer(cfg, [_layer(st, i) for st in stacks], x,
+                                 rope, key_mask)
+        for r in range(len(stacks)):
+            ks[r].append(k[r])
+            vs[r].append(v[r])
     x = _rms(x, final_norm, cfg.rms_norm_eps)
     last = x[:, -1] if last_index is None else x[:, last_index]
-    return (last @ lm_head).float(), torch.stack(ks), torch.stack(vs)
+    return ((last @ lm_head).float(),
+            _like([torch.stack(k) for k in ks], stacked),
+            _like([torch.stack(v) for v in vs], stacked))
 
 
 def _quantized_prefill_scatter(pool, scales, toks, page, off, valid,
@@ -555,23 +626,26 @@ def scatter_prefill_kv(kp, vp, ks, vs, table_row, pad, offset=0,
     the pools hold int8 codes (:func:`_quantized_prefill_scatter`). The
     reference routes pad positions to the NULL page; here they are not
     written at all, which leaves every page other than the NULL page
-    identical."""
-    bs = kp.shape[2]
-    sp = ks.shape[2]
+    identical. Pools, K/V and scales may each be per-rank lists."""
+    kps, vps, kss, vss = _ranks(kp), _ranks(vp), _ranks(ks), _ranks(vs)
+    bs = kps[0].shape[2]
+    sp = kss[0].shape[2]
     pad = int(pad)
-    cpos = torch.arange(sp - pad, device=kp.device) + int(offset)
-    page = table_row.to(kp.device).long()[cpos // bs]
-    off = cpos % bs
-    if kv_scales is not None:
-        valid = torch.ones_like(cpos, dtype=torch.bool)
-        for pool, scales, toks in ((kp, kv_scales[0], ks),
-                                   (vp, kv_scales[1], vs)):
-            _quantized_prefill_scatter(pool, scales,
-                                       toks[:, 0, pad:].float(), page, off,
-                                       valid, table_row)
-        return
-    kp[:, page, off] = ks[:, 0, pad:].to(kp.dtype)
-    vp[:, page, off] = vs[:, 0, pad:].to(vp.dtype)
+    for r, (kpr, vpr) in enumerate(zip(kps, vps)):
+        cpos = torch.arange(sp - pad, device=kpr.device) + int(offset)
+        page = table_row.to(kpr.device).long()[cpos // bs]
+        off = cpos % bs
+        if kv_scales is not None:
+            valid = torch.ones_like(cpos, dtype=torch.bool)
+            for pool, scales, toks in (
+                    (kpr, _ranks(kv_scales[0])[r], kss[r]),
+                    (vpr, _ranks(kv_scales[1])[r], vss[r])):
+                _quantized_prefill_scatter(pool, scales,
+                                           toks[:, 0, pad:].float(), page,
+                                           off, valid, table_row)
+            continue
+        kpr[:, page, off] = kss[r][:, 0, pad:].to(kpr.dtype)
+        vpr[:, page, off] = vss[r][:, 0, pad:].to(vpr.dtype)
 
 
 def _decode_slots(tables, lens, bs):
@@ -619,27 +693,40 @@ def _paged_decode_layer_step(cfg, lp, x, kp, vp, tables, lens,
     its length. ``attn`` is the attention function (the kernel wrapper
     by default, or the plain version for comparison); ``rope`` and
     ``slots`` may be passed precomputed (:func:`_paged_decode_step`
-    shares them across layers)."""
+    shares them across layers). ``lp``, the pools and the scales may be
+    per-rank lists (tensor parallel): each rank writes and attends over
+    its kv heads."""
     hd = cfg.head_dim
-    kvh = lp["wk"].shape[-1] // hd
     b = x.shape[0]
+    kps, vps = _ranks(kp), _ranks(vp)
     if rope is None:
         rope = _rope_cos_sin(lens[:, None], cfg.rope_theta, hd)
-    page, off = _decode_slots(tables, lens, kp.shape[1]) \
+    page, off = _decode_slots(tables, lens, kps[0].shape[1]) \
         if slots is None else slots
-    q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
-                   rope)
-    qg = q[:, 0].reshape(b, kvh, -1, hd).contiguous()
-    if kscale is None:
-        kp[page, off] = k[:, 0].to(kp.dtype)
-        vp[page, off] = v[:, 0].to(vp.dtype)
-        out = attn(qg, kp, vp, tables, lens + 1)
-    else:
-        _quantized_token_insert(kp, kscale, page, off, k[:, 0].float())
-        _quantized_token_insert(vp, vscale, page, off, v[:, 0].float())
-        out = attn(qg, kp, vp, tables, lens + 1, kv_scales=(kscale, vscale))
-    x = x + out.to(x.dtype).reshape(b, 1, -1) @ lp["wo"]
-    return _mlp(cfg, lp, x)
+
+    def attend(r, q, k, v):
+        dev = q.device
+        pg, of = page.to(dev), off.to(dev)
+        tab, n = tables.to(dev), lens.to(dev) + 1
+        qg = q[:, 0].reshape(b, k.shape[2], -1, hd).contiguous()
+        if kscale is None:
+            kps[r][pg, of] = k[:, 0].to(kps[r].dtype)
+            vps[r][pg, of] = v[:, 0].to(vps[r].dtype)
+            out = attn(qg, kps[r], vps[r], tab, n)
+        else:
+            ks, vs = _ranks(kscale)[r], _ranks(vscale)[r]
+            _quantized_token_insert(kps[r], ks, pg, of, k[:, 0].float())
+            _quantized_token_insert(vps[r], vs, pg, of, v[:, 0].float())
+            out = attn(qg, kps[r], vps[r], tab, n, kv_scales=(ks, vs))
+        return out.to(x.dtype)
+
+    return _tp_layer(cfg, _ranks(lp), x, rope, attend)
+
+
+def _per_layer(pools, i):
+    """Layer ``i`` of a stacked pool or scale, or of each rank's."""
+    return None if pools is None else _like([p[i] for p in _ranks(pools)],
+                                            pools)
 
 
 def _paged_decode_step(cfg, stacked, embed, final_norm, lm_head, token,
@@ -648,17 +735,18 @@ def _paged_decode_step(cfg, stacked, embed, final_norm, lm_head, token,
     """Paged single-token step: token ids [b], pools [L, N, bs, kvh, hd]
     (updated IN PLACE), tables [b, max_blocks], lens [b] -> logits
     [b, V] fp32. int8 pools pass ``kscales``/``vscales`` [L, N, kvh]
-    f32, also updated in place."""
+    f32, also updated in place. Weights, pools and scales may be
+    per-rank lists (tensor parallel)."""
+    stacks = _ranks(stacked)
     x = embed[token][:, None, :]
     rope = _rope_cos_sin(lens[:, None], cfg.rope_theta, cfg.head_dim)
-    slots = _decode_slots(tables, lens, pages_k.shape[2])
+    slots = _decode_slots(tables, lens, _ranks(pages_k)[0].shape[2])
     for i in range(cfg.num_hidden_layers):
-        scales = (None, None) if kscales is None \
-            else (kscales[i], vscales[i])
-        x = _paged_decode_layer_step(cfg, _layer(stacked, i), x,
-                                     pages_k[i], pages_v[i], tables, lens,
-                                     *scales, attn=attn, rope=rope,
-                                     slots=slots)
+        x = _paged_decode_layer_step(
+            cfg, [_layer(st, i) for st in stacks], x,
+            _per_layer(pages_k, i), _per_layer(pages_v, i), tables, lens,
+            _per_layer(kscales, i), _per_layer(vscales, i), attn=attn,
+            rope=rope, slots=slots)
     x = _rms(x, final_norm, cfg.rms_norm_eps)
     return (x[:, 0] @ lm_head).float()
 
@@ -690,13 +778,18 @@ def _attention_prefix(q, k, v, key_mask, pk, pv, prefix_mask):
 def _prefix_decoder_layer(cfg, lp, x, rope, key_mask, pk, pv,
                           prefix_mask):
     """One decoder layer over an uncached tail window attending to a
-    cached paged prefix; returns (x, k, v) with the tail's K/V."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(cfg, lp, _rms(x, lp["input_ln"], cfg.rms_norm_eps),
-                   rope)
-    attn = _attention_prefix(q, k, v, key_mask, pk, pv, prefix_mask)
-    x = x + attn.reshape(b, s, -1) @ lp["wo"]
-    return _mlp(cfg, lp, x), k, v
+    cached paged prefix; returns (x, k, v) with the tail's K/V. ``lp``,
+    pk and pv may be per-rank lists (k and v then are too)."""
+    pks, pvs, kv = _ranks(pk), _ranks(pv), []
+
+    def attend(r, q, k, v):
+        kv.append((k, v))
+        dev = q.device
+        return _attention_prefix(q, k, v, key_mask.to(dev), pks[r], pvs[r],
+                                 prefix_mask.to(dev))
+
+    x = _tp_layer(cfg, _ranks(lp), x, rope, attend)
+    return x, _like([k for k, _ in kv], lp), _like([v for _, v in kv], lp)
 
 
 def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
@@ -714,9 +807,11 @@ def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
     in place) switches the pools to int8 codes: the gathers dequantize
     and the scatter quantizes. Returns the last real position's logits
     [1, V] fp32, or with ``all_logits`` the logits of every window
-    position [1, sc, V] (the speculative verify shape)."""
+    position [1, sc, V] (the speculative verify shape). Weights, pools
+    and scales may be per-rank lists (tensor parallel)."""
+    stacks, kps, vps = _ranks(stacked), _ranks(kp), _ranks(vp)
     b, sc = ids.shape
-    bs = kp.shape[2]
+    bs = kps[0].shape[2]
     mb = table_row.shape[0]
     cols = torch.arange(sc, device=ids.device)[None, :]
     positions = torch.clamp(cols - pad_len[:, None], min=0) \
@@ -725,28 +820,143 @@ def prefix_prefill(cfg, stacked, embed, final_norm, lm_head, ids,
     key_mask = cols >= pad_len[:, None]
     prefix_mask = (torch.arange(mb * bs, device=ids.device)[None, :]
                    < prefix_len[:, None])
-    rows = table_row.long()
     x = embed[ids]
-    ks, vs = [], []
+    ks, vs = [[] for _ in stacks], [[] for _ in stacks]
     for i in range(cfg.num_hidden_layers):
-        if kv_scales is None:
-            pk = kp[i][rows].reshape(1, mb * bs, *kp.shape[3:])
-            pv = vp[i][rows].reshape(1, mb * bs, *vp.shape[3:])
-        else:
-            pk = gather_pages_dequant(kp[i], rows[None], kv_scales[0][i])
-            pv = gather_pages_dequant(vp[i], rows[None], kv_scales[1][i])
-        x, k, v = _prefix_decoder_layer(cfg, _layer(stacked, i), x,
-                                        rope, key_mask, pk.to(x.dtype),
-                                        pv.to(x.dtype), prefix_mask)
-        ks.append(k)
-        vs.append(v)
+        pk, pv = [], []
+        for r, (kpr, vpr) in enumerate(zip(kps, vps)):
+            rows = table_row.to(kpr.device).long()
+            if kv_scales is None:
+                pk.append(kpr[i][rows].reshape(1, mb * bs, *kpr.shape[3:]))
+                pv.append(vpr[i][rows].reshape(1, mb * bs, *vpr.shape[3:]))
+            else:
+                pk.append(gather_pages_dequant(
+                    kpr[i], rows[None], _ranks(kv_scales[0])[r][i]))
+                pv.append(gather_pages_dequant(
+                    vpr[i], rows[None], _ranks(kv_scales[1])[r][i]))
+        x, k, v = _prefix_decoder_layer(
+            cfg, [_layer(st, i) for st in stacks], x, rope, key_mask,
+            [t.to(x.dtype) for t in pk], [t.to(x.dtype) for t in pv],
+            prefix_mask)
+        for r in range(len(stacks)):
+            ks[r].append(k[r])
+            vs[r].append(v[r])
     x = _rms(x, final_norm, cfg.rms_norm_eps)
     if all_logits:
         logits = (x @ lm_head).float()
     else:
         last = x[:, -1] if last_index is None else x[:, last_index]
         logits = (last @ lm_head).float()
-    scatter_prefill_kv(kp, vp, torch.stack(ks), torch.stack(vs), table_row,
+    scatter_prefill_kv(kp, vp, _like([torch.stack(k) for k in ks], kp),
+                       _like([torch.stack(v) for v in vs], kp), table_row,
                        int(pad_len[0]), offset=int(prefix_len[0]),
                        kv_scales=kv_scales)
     return logits
+
+
+# -- the single-launch mixed step ---------------------------------------------
+
+def _quantized_mixed_scatter(pool, scales, toks, page, off, valid, tables):
+    """int8 write half of the mixed step for ONE layer's pool, IN PLACE:
+    the [B, T] window form of :func:`_quantized_prefill_scatter`. pool
+    [N, bs, kvh, hd] int8 codes; scales [N, kvh] f32; toks
+    [B, T, kvh, hd] f32; page/off/valid [B, T]; tables [B, mb]. The
+    scales grow by a scatter-max, then every page any row's table names
+    is re-expressed in its grown scale (ratio exactly 1.0, codes
+    bit-identical, for a page whose max did not move, which includes
+    every shared prefix page: valid window writes only reach a row's
+    private tail pages, so rows sharing a page write it identical
+    values). Padding slots (``valid`` False) contribute amax 0 and write
+    the NULL page, as the reference's do."""
+    kvh = scales.shape[1]
+    page, off = page.long(), off.long()
+    amax = torch.where(valid[..., None], toks.abs().amax(-1),
+                       torch.zeros((), device=toks.device))   # [B, T, kvh]
+    old_all = scales.clone()
+    flat = page.reshape(-1)
+    scales.scatter_reduce_(0, flat[:, None].expand(-1, kvh),
+                           (amax / 127.0).reshape(-1, kvh), "amax",
+                           include_self=True)
+    rows = tables.long()
+    codes = pool[rows]                              # [B, mb, bs, kvh, hd]
+    ratio = (old_all[rows] / scales[rows])[:, :, None, :, None]
+    pool[rows] = torch.clamp(torch.round(codes.float() * ratio),
+                             -127, 127).to(pool.dtype)
+    qt = torch.clamp(torch.round(toks / scales[page][..., None]), -127, 127)
+    pool[page, off] = qt.to(pool.dtype)
+
+
+def _mixed_decoder_layer(cfg, lp, x, rope, valid, page, off, tables,
+                         kv_lens, q_lens, kp, vp, kscale=None, vscale=None,
+                         attn=mixed_paged_attention):
+    """One decoder layer for a mixed window batch: row b carries
+    q_lens[b] window tokens (LEFT-aligned: a prefill chunk, a verify
+    window or one decode token) ending at context position
+    kv_lens[b] - 1. Scatter-then-attend, the mixed kernel's contract:
+    the window's K/V land in kp/vp [N, bs, kvh, hd] (IN PLACE; padding
+    slots on the NULL page, whose duplicate writes race on the card and
+    are never read within a row's length), then ``attn`` (the kernel
+    wrapper by default) reads every position below kv_lens. With
+    ``kscale``/``vscale`` the pools hold int8 codes
+    (:func:`_quantized_mixed_scatter`). ``lp``, the pools and the scales
+    may be per-rank lists (tensor parallel)."""
+    hd = cfg.head_dim
+    b, t, _ = x.shape
+    kps, vps = _ranks(kp), _ranks(vp)
+
+    def attend(r, q, k, v):
+        dev = q.device
+        pg, of, tab = page.to(dev), off.to(dev), tables.to(dev)
+        if kscale is None:
+            kps[r][pg, of] = k.to(kps[r].dtype)
+            vps[r][pg, of] = v.to(vps[r].dtype)
+            scales = None
+        else:
+            scales = (_ranks(kscale)[r], _ranks(vscale)[r])
+            ok = valid.to(dev)
+            _quantized_mixed_scatter(kps[r], scales[0], k.float(), pg, of,
+                                     ok, tab)
+            _quantized_mixed_scatter(vps[r], scales[1], v.float(), pg, of,
+                                     ok, tab)
+        qg = q.reshape(b, t, k.shape[2], -1, hd).contiguous()
+        out = attn(qg, kps[r], vps[r], tab, kv_lens.to(dev),
+                   q_lens.to(dev), kv_scales=scales)
+        return out.to(x.dtype)
+
+    return _tp_layer(cfg, _ranks(lp), x, rope, attend)
+
+
+def mixed_paged_step(cfg, stacked, embed, final_norm, lm_head, ids, q_lens,
+                     kv_lens, tables, pages_k, pages_v, kscales=None,
+                     vscales=None, attn=mixed_paged_attention):
+    """The single-launch mixed step: every decode-ready row's window
+    (its pending token and drafts) and every funded prefill chunk in
+    one pass. ids [B, T] LEFT-aligned windows (slot i >= q_lens[b] is
+    padding), kv_lens [B] INCLUDING this launch's windows, tables
+    [B, mb], pools [L, N, bs, kvh, hd] (and int8 scales [L, N, kvh])
+    updated IN PLACE. Returns the argmax token [B, T] int32 at every
+    window slot (fp32 logits): the engine reads chunk first tokens,
+    verify chains and decode tokens off the windows. Padding slots rope
+    at position 0 and write NULL page 0, offset 0; rows with q_lens 0
+    are idle. Weights, pools and scales may be per-rank lists (tensor
+    parallel)."""
+    stacks = _ranks(stacked)
+    B, T = ids.shape
+    bs = _ranks(pages_k)[0].shape[2]
+    j = torch.arange(T, device=ids.device)[None, :]
+    valid = j < q_lens[:, None]
+    zero = torch.zeros((), dtype=torch.long, device=ids.device)
+    pos = torch.where(valid, kv_lens[:, None].long() - q_lens[:, None] + j,
+                      zero)
+    page = torch.where(valid, tables.gather(1, pos // bs).long(), zero)
+    off = torch.where(valid, pos % bs, zero)
+    rope = _rope_cos_sin(pos, cfg.rope_theta, cfg.head_dim)
+    x = embed[ids]
+    for i in range(cfg.num_hidden_layers):
+        x = _mixed_decoder_layer(
+            cfg, [_layer(st, i) for st in stacks], x, rope, valid, page, off,
+            tables, kv_lens, q_lens, _per_layer(pages_k, i),
+            _per_layer(pages_v, i), _per_layer(kscales, i),
+            _per_layer(vscales, i), attn=attn)
+    x = _rms(x, final_norm, cfg.rms_norm_eps)
+    return (x @ lm_head).float().argmax(dim=-1).to(torch.int32)

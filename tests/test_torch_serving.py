@@ -121,6 +121,7 @@ def test_import_leaves_jax_out():
             "assert 'torch' not in sys.modules;"
             "import paddle_tpu_torch.inference.serving,"
             " paddle_tpu_torch.inference.spec_decode,"
+            " paddle_tpu_torch.inference.sharding,"
             " paddle_tpu_torch.kernels.paged_attention,"
             " paddle_tpu_torch.kernels.flash_attention,"
             " paddle_tpu_torch.models.llama,"
@@ -299,14 +300,17 @@ def test_preemption_and_small_pool_keep_outputs(ref):
 
 def test_engine_refuses_what_is_not_ported(ref):
     from paddle_tpu_torch.inference.serving import DecodeEngine
+    from paddle_tpu_torch.inference.sharding import make_mesh, make_tp_mesh
+    seq2 = make_mesh(1, seq_degree=2, devices=["cpu", "cpu"])
     for kw, item in ((dict(paged=False), "item 2"),
-                     (dict(mesh=object()), "item 4")):
+                     (dict(mesh=seq2), "item 4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             DecodeEngine(ref.pm, **kw)
     for kw in (dict(chunked_prefill=True), dict(spec_decode=True),
                dict(kv_dtype="int8"), dict(chunked_prefill=True,
                                            spec_decode=True,
-                                           kv_dtype="int8")):
+                                           kv_dtype="int8"),
+               dict(mesh=make_tp_mesh(1, devices=["cpu"]))):
         DecodeEngine(ref.pm, **kw)          # ported: these construct
     eng = DecodeEngine(ref.pm, capacity=1, s_max=16, chunk=4)
     with pytest.raises(ValueError):
