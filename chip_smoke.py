@@ -50,10 +50,13 @@ Phases, each printed as it ends:
      are prefills, so no paged-decode kernel launches;
   7. the FlashAttention-2 kernels (flash_fwd, flash_dq, flash_dkv)
      against their plain versions at B=2, S=2048, H=32, Hkv=8, D=128,
-     causal and not, and at a ragged S=1000, in bf16 and fp32: out and
-     lse, then dq, dk and dv; at S=2048 causal each kernel's time beside
-     its bound, its plain version and PyTorch's SDPA (forward, backward,
-     both);
+     causal and not, and at a ragged S=1000, in bf16 and fp32, in fp16
+     at S=2048 and 1000 causal, and at D=16, 32 and 64 (B=1, S=300, H=8,
+     Hkv=2) in bf16 and fp16: out and lse, then dq, dk and dv, and the
+     route each launch took (tensor cores for the bf16/fp16 forward and
+     dK/dV, CUDA cores otherwise); two bf16 dK/dV launches bit-identical;
+     at S=2048 causal each kernel's time beside its bound, its plain
+     version and PyTorch's SDPA (forward, backward, both), per type;
   8. the tiny preset in fp32 on the card and on the CPU from the same
      weights and batches: the first gradients, then 3 AdamW steps'
      losses and parameters, within stated tolerances;
@@ -64,7 +67,8 @@ Phases, each printed as it ends:
      and 10 timed steps with the counts zeroed just before: tokens/s,
      MFU by bench.py's formula, peak memory, a falling loss, and each
      FA2 kernel launched once per layer and step (the forward twice:
-     "core_attn" recomputes it);
+     "core_attn" recomputes it), the forward and dK/dV on the
+     tensor-core route;
  10. (run after phase 6) the tensor-parallel mesh engine at llama3-8b
      on phase 4's model:
      DecodeEngine(capacity=4, s_max=1600, block_size=16,
@@ -96,6 +100,7 @@ import argparse
 import copy
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1263,10 +1268,11 @@ def phase_mesh_small(on_card, seed):
 
 # -- phase 7: FlashAttention-2 kernels against their plain versions ----------
 
-FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 1e-4}
 FLASH_TOL_WHY = ("max-abs error over max |plain| of each output; fp32: "
-                 "sums in other orders and expf; bf16: the same plus "
-                 "flips of the roundings to bf16 (P, dS, the outputs)")
+                 "sums in other orders and expf; bf16/fp16: the same plus "
+                 "flips of the roundings to the input type (P, dS, the "
+                 "outputs)")
 
 
 def flash_case(B, S, H, Hkv, D, dtype, device, seed):
@@ -1275,6 +1281,23 @@ def flash_case(B, S, H, Hkv, D, dtype, device, seed):
     mk = lambda h: torch.randn((B, S, h, D), generator=g,  # noqa: E731
                                device=device).to(dtype)
     return mk(H), mk(Hkv), mk(Hkv), mk(H)
+
+
+def flash_cases(on_card):
+    """(dtype, (B, S, H, Hkv, D), causal) of each phase-7 comparison: the
+    slice's shapes (S=2048 causal and not, a ragged S=1000 causal) in
+    bf16 and fp32, fp16 at S=2048 and S=1000 causal, and the other head
+    dims of the tensor-core kernels (16, 32, 64) at a small ragged shape
+    in bf16 and fp16. The CPU rehearsal shrinks B, S, H and D."""
+    B, H, Hkv, D = (2, 32, 8, 128) if on_card else (1, 4, 2, 32)
+    S2, S1, Ss = (2048, 1000, 300) if on_card else (128, 77, 40)
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [(dt, (B, S, H, Hkv, D), causal) for dt in (bf16, fp32)
+             for S, causal in ((S2, True), (S2, False), (S1, True))]
+    cases += [(fp16, (B, S, H, Hkv, D), True) for S in (S2, S1)]
+    cases += [(dt, (1, Ss, 8, 2, d), True) for dt in (bf16, fp16)
+              for d in (16, 32, 64)]
+    return cases
 
 
 def flash_bounds_ms(q, k, causal):
@@ -1300,88 +1323,95 @@ def flash_bounds_ms(q, k, causal):
 
 
 def phase_flash(on_card, seed):
-    """Each FA2 kernel against its plain version at this slice's shapes
-    (B=2, H=32, Hkv=8, D=128; S=2048 causal and not, and a ragged
-    S=1000 causal), in bf16 and fp32 (TF32 off): out and lse of the
-    forward, then dq, dk and dv. At S=2048 causal each kernel is timed
-    beside its bound, its plain version and SDPA (forward; backward
-    alone, which computes dq, dk and dv together; forward + backward).
-    The CPU rehearsal runs the plain versions at B=1, H=4, Hkv=2, D=32."""
-    from paddle_tpu_torch.kernels import _build
+    """Each FA2 kernel against its plain version (``flash_cases``): out
+    and lse of the forward, then dq, dk and dv, within FLASH_TOL, with
+    TF32 off; on the card each case also shows the route its launches
+    took (tensor cores for the bf16/fp16 forward and dK/dV, CUDA cores
+    for fp32 and for dQ). At B=2, S=2048, causal, D=128 two dK/dV
+    launches give bit-identical bf16 gradients (no atomics), and in each
+    type every kernel is timed beside its bound, its plain version and
+    SDPA (forward; backward alone, which computes dq, dk and dv
+    together; forward + backward)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     device = "cuda" if on_card else "cpu"
-    B, H, Hkv, D = (2, 32, 8, 128) if on_card else (1, 4, 2, 32)
-    shapes = ((2048, True), (2048, False), (1000, True)) if on_card \
-        else ((128, True), (128, False), (77, True))
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
         if on_card else None
     flush = (lambda: flush_buf.zero_()) if on_card else None
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    say("flash", B=B, H=H, Hkv=Hkv, D=D, tf32=False,
-        tolerance=repr(FLASH_TOL_WHY))
+    say("flash", tf32=False, tolerance=repr(FLASH_TOL_WHY))
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, (B, S, H, Hkv, D), causal in flash_cases(on_card):
         name = str(dtype).replace("torch.", "")
         tol = FLASH_TOL[dtype]
-        for S, causal in shapes:
-            q, k, v, do = flash_case(B, S, H, Hkv, D, dtype, device, seed)
-            o, lse = fa._fwd(q, k, v, causal)
-            dq, dk, dv = fa._bwd(q, k, v, o, lse, do, causal, None)
-            sync()
-            po, plse = fa.flash_fwd_reference(q, k, v, causal)
-            pdq, pdk, pdv = fa.flash_bwd_reference(q, k, v, po, plse, do,
-                                                   causal)
-            errs = {}
-            for what, got, want in (("out", o, po), ("lse", lse, plse),
-                                    ("dq", dq, pdq), ("dk", dk, pdk),
-                                    ("dv", dv, pdv)):
-                check(got.dtype == want.dtype and got.shape == want.shape,
-                      f"{what}: type and shape of the plain version's")
-                check(bool(torch.isfinite(got).all()), f"{what} is finite")
-                err = float((got.float() - want.float()).abs().max())
-                scale = max(1.0, float(want.float().abs().max()))
-                errs[what] = err
-                check(err <= tol * scale,
-                      f"flash {what} {name} S={S} causal={causal}: "
-                      f"max-abs {err} <= {tol} x {scale}")
-            say("flash", dtype=name, S=S, causal=causal, tol=tol,
-                **{f"{w}_max_abs_err": e for w, e in errs.items()})
-            if not (on_card and S == 2048 and causal):
-                continue
-            delta = fa.flash_delta(o, do).contiguous()
-            lib = _build.load("flash_bwd", fa._bind_bwd)
-            g_dq, g_dk, g_dv = (torch.empty_like(t) for t in (q, k, v))
-            calls = {
-                "flash_fwd": lambda: fa._fwd(q, k, v, True),
-                "flash_dq": lambda: fa._run(
-                    "flash_dq", lib.flash_dq,
-                    (q, k, v, do, lse, delta, g_dq), q, k, True),
-                "flash_dkv": lambda: fa._run(
-                    "flash_dkv", lib.flash_dkv,
-                    (q, k, v, do, lse, delta, g_dk, g_dv), q, k, True)}
-            plain_fwd = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, True),
-                                iters=5, flush=flush)
-            plain_bwd = cuda_ms(lambda: fa.flash_bwd_reference(
-                q, k, v, po, plse, do, True), iters=5, flush=flush)
-            lib_ms = sdpa_flash_ms(q, k, v, do, flush)
-            bounds = flash_bounds_ms(q, k, True)
-            main_err = {"flash_fwd": errs["out"], "flash_dq": errs["dq"],
-                        "flash_dkv": max(errs["dk"], errs["dv"])}
-            for kname, call in calls.items():
-                ms = cuda_ms(call, flush=flush)
-                bound_ms, bound_by = bounds[kname]
-                plain_ms = plain_fwd if kname == "flash_fwd" else plain_bwd
-                library_ms = lib_ms["fwd"] if kname == "flash_fwd" \
-                    else lib_ms["bwd"]
-                say("flash", name=kname, dtype=name, S=S, causal=True, ms=ms,
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    share_of_bound=bound_ms / ms, plain_ms=plain_ms,
-                    library_ms=library_ms,
-                    sdpa_fwd_bwd_ms=lib_ms["fwd_bwd"])
-                out[(kname, name)] = dict(
-                    max_abs_err=main_err[kname], ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms)
+        q, k, v, do = flash_case(B, S, H, Hkv, D, dtype, device, seed)
+        fa.route_counts.clear()
+        o, lse = fa._fwd(q, k, v, causal)
+        dq, dk, dv = fa._bwd(q, k, v, o, lse, do, causal, None)
+        sync()
+        routes = dict(fa.route_counts)
+        po, plse = fa.flash_fwd_reference(q, k, v, causal)
+        pdq, pdk, pdv = fa.flash_bwd_reference(q, k, v, po, plse, do,
+                                               causal)
+        errs = {}
+        for what, got, want in (("out", o, po), ("lse", lse, plse),
+                                ("dq", dq, pdq), ("dk", dk, pdk),
+                                ("dv", dv, pdv)):
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"{what}: type and shape of the plain version's")
+            check(bool(torch.isfinite(got).all()), f"{what} is finite")
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            errs[what] = (err, scale)
+            check(err <= tol * scale,
+                  f"flash {what} {name} B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                  f"causal={causal}: max-abs {err} <= {tol} x {scale}")
+        say("flash", dtype=name, B=B, S=S, H=H, Hkv=Hkv, D=D, causal=causal,
+            tol=tol, routes=json.dumps(routes),
+            **{f"{w}_max_abs_err": e for w, (e, _) in errs.items()},
+            **{f"{w}_rel_err": e / sc for w, (e, sc) in errs.items()})
+        if on_card:
+            way = fa.route("flash_fwd", dtype)
+            want = {f"flash_fwd/{way}": 1, "flash_dq/cuda_core": 1,
+                    f"flash_dkv/{way}": 1}
+            check(routes == want, f"flash routes {routes} == {want}")
+        if not (on_card and S == 2048 and causal):
+            continue
+        delta = fa.flash_delta(o, do).contiguous()
+        if dtype == torch.bfloat16:
+            runs = [fa._dkv_kernel(q, k, v, do, lse, delta, True)
+                    for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            say("flash", name="flash_dkv", dtype=name, S=S,
+                two_launches_bit_identical=same)
+            check(same, "two flash_dkv launches give bit-identical dk, dv")
+        calls = {
+            "flash_fwd": lambda: fa._fwd(q, k, v, True),
+            "flash_dq": lambda: fa._dq_kernel(q, k, v, do, lse, delta, True),
+            "flash_dkv": lambda: fa._dkv_kernel(q, k, v, do, lse, delta,
+                                                True)}
+        plain_fwd = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, True),
+                            iters=5, flush=flush)
+        plain_bwd = cuda_ms(lambda: fa.flash_bwd_reference(
+            q, k, v, po, plse, do, True), iters=5, flush=flush)
+        lib_ms = sdpa_flash_ms(q, k, v, do, flush)
+        bounds = flash_bounds_ms(q, k, True)
+        main_err = {"flash_fwd": errs["out"][0], "flash_dq": errs["dq"][0],
+                    "flash_dkv": max(errs["dk"][0], errs["dv"][0])}
+        for kname, call in calls.items():
+            ms = cuda_ms(call, flush=flush)
+            bound_ms, bound_by = bounds[kname]
+            plain_ms = plain_fwd if kname == "flash_fwd" else plain_bwd
+            library_ms = lib_ms["fwd"] if kname == "flash_fwd" \
+                else lib_ms["bwd"]
+            say("flash", name=kname, dtype=name, route=fa.route(kname, dtype),
+                S=S, causal=True, ms=ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                sdpa_fwd_bwd_ms=lib_ms["fwd_bwd"])
+            out[(kname, name)] = dict(
+                max_abs_err=main_err[kname], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
     return out
 
 
@@ -1515,7 +1545,8 @@ def phase_train(on_card, args):
     10 timed steps with the launch counts zeroed just before: flash_fwd
     launched 2 x layers x steps times (core_attn recomputes the
     attention forward in the backward), flash_dq and flash_dkv layers x
-    steps times. The loss is finite and falls. The CPU rehearsal runs
+    steps times, the forward and dK/dV on the tensor-core route and dQ
+    on the CUDA cores. The loss is finite and falls. The CPU rehearsal runs
     the debug preset's widths (batch 2 x 64, 3 steps)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1572,6 +1603,7 @@ def phase_train(on_card, args):
     loss_first = float(step(first, first))
     warm_s = time.perf_counter() - t
     fa.launch_counts.clear()
+    fa.route_counts.clear()
     sync()
     t = time.perf_counter()
     for i in range(iters):
@@ -1579,6 +1611,7 @@ def phase_train(on_card, args):
     loss = float(loss)                        # a fetch: synced
     dt = time.perf_counter() - t
     launches = dict(fa.launch_counts)
+    routes = dict(fa.route_counts)
     tokens_per_s = batch * seq * iters / dt
     mfu = 6.0 * (n_params - n_embed) * tokens_per_s / H100_FLOPS[
         torch.bfloat16]
@@ -1587,7 +1620,8 @@ def phase_train(on_card, args):
         step_ms=round(1e3 * dt / iters, 3), warmup_s=round(warm_s, 3),
         tokens_per_s=round(tokens_per_s, 2), mfu=round(mfu, 4),
         loss_first=round(loss_first, 4), loss=round(loss, 4),
-        peak_mem_gib=round(peak / 2 ** 30, 3), launches=json.dumps(launches))
+        peak_mem_gib=round(peak / 2 ** 30, 3), launches=json.dumps(launches),
+        routes=json.dumps(routes))
     check(np.isfinite(loss_first) and np.isfinite(loss), "losses finite")
     check(loss < loss_first, f"the loss falls: {loss_first} -> {loss}")
     L = cfg.num_hidden_layers
@@ -1595,6 +1629,10 @@ def phase_train(on_card, args):
         want = {"flash_fwd": 2 * L * iters, "flash_dq": L * iters,
                 "flash_dkv": L * iters}
         check(launches == want, f"training launches {launches} == {want}")
+        want = {"flash_fwd/tensor_core": 2 * L * iters,
+                "flash_dq/cuda_core": L * iters,
+                "flash_dkv/tensor_core": L * iters}
+        check(routes == want, f"training routes {routes} == {want}")
     if args.profile:
         profile_train_step(step, batches[0], on_card)
     return launches
@@ -1670,6 +1708,58 @@ def profile_train_step(step, batch, on_card):
             device_ms=round(e.self_device_time_total / 1e3, 3))
 
 
+def _demangle(name):
+    """``kernel<arg, ...>`` from the Itanium name of a kernel template
+    in a namespace (``_ZN<n><namespace><n><name>I<args>E...``), where
+    each argument is a type (``f``, or a length-prefixed name) or a
+    value (``L<type><value>E``); the name itself when it is not of that
+    form."""
+    m = re.match(r"_ZN(\d+)", name)
+    if not m:
+        return name
+    i = m.end() + int(m.group(1))              # past the namespace
+    m = re.match(r"\d+", name[i:])
+    if not m:
+        return name
+    n, i = int(m.group()), i + m.end()
+    base, i = name[i:i + n], i + n
+    if name[i:i + 1] != "I":
+        return base
+    i, args = i + 1, []
+    while i < len(name) and name[i] != "E":
+        if name[i] == "L":                     # L<type><value>E
+            j = name.index("E", i)
+            args.append(name[i + 2:j])
+            i = j + 1
+        elif name[i].isdigit():
+            m = re.match(r"\d+", name[i:])
+            n, i = int(m.group()), i + m.end()
+            args.append(name[i:i + n])
+            i += n
+        else:
+            args.append({"f": "float", "i": "int"}.get(name[i], name[i]))
+            i += 1
+    return f"{base}<{', '.join(args)}>"
+
+
+def ptxas_entries(log):
+    """(kernel, registers, spill bytes stored + loaded) of each entry
+    function in an ``nvcc -Xptxas -v`` log."""
+    out, entry, spills = [], "?", 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)", line)
+        if m:
+            entry = _demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((entry, int(m.group(1)), spills))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -1704,10 +1794,11 @@ def main():
         say("build", kernels=",".join(names),
             seconds=round(time.perf_counter() - t0, 3))
         for name in names:
-            for line in _build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: "
-                          + line.strip().split("ptxas info    : ")[-1])
+            for entry, regs, spills in ptxas_entries(_build.build_log(name)):
+                print(f"  ptxas {name}: {entry} registers={regs} "
+                      f"spill_bytes={spills}")
+                check(not ("_mma_kernel" in entry and spills),
+                      f"no spills in the tensor-core kernel {entry}")
     kernels = phase_kernels(on_card, args.seed)
     kernels_int8 = phase_kernels_int8(on_card, args.seed)
     kernels_mixed = phase_kernels_mixed(on_card, args.seed)

@@ -1,12 +1,12 @@
-// FlashAttention-2 backward for Hopper (sm_90a): two kernels, dQ and
-// dK/dV, as on the TPU.
+// FlashAttention-2 backward for Hopper (sm_90a): dQ and dK/dV in two
+// kernels, as on the TPU.
 //
 // Replaces the TPU backward kernels of paddle_tpu/kernels/flash_attention.py,
 // launched by `_flash_bwd_impl`:
-//   flash_dq_kernel  <- `_dq_kernel`, `_dq_kernel_grouped`,
-//                       `_dq_kernel_stream`, `_dq_kernel_stream_grouped`
-//   flash_dkv_kernel <- `_dkv_kernel`, `_dkv_kernel_grouped`,
-//                       `_dkv_kernel_stream`, `_dkv_kernel_stream_grouped`
+//   flash_dq_kernel       <- `_dq_kernel`, `_dq_kernel_grouped`,
+//                            `_dq_kernel_stream`, `_dq_kernel_stream_grouped`
+//   flash_dkv_mma_kernel, <- `_dkv_kernel`, `_dkv_kernel_grouped`,
+//   flash_dkv_kernel         `_dkv_kernel_stream`, `_dkv_kernel_stream_grouped`
 // (each family is one function in four TPU memory layouts).
 //
 //   q, dout [B, S, H, D]    bf16 | fp16 | fp32
@@ -24,18 +24,45 @@
 //   dQ:    dS = P (dP - delta) rounded to k's type;  dq = D^-1/2 dS . k
 //   dK/dV: P rounded to dout's type;  dv = P^T . dout;
 //          dS = P (dP - delta) rounded to q's type;  dk = D^-1/2 dS^T . q
-// with every sum in fp32.
+// with every sum in fp32. dk is scaled by D^-1/2 once, at the end, as
+// the plain version does; the TPU kernel scales each tile's product, a
+// difference of fp32 rounding only. The tensor-core kernel takes P as
+// 2^((s D^-1/2 - lse) log2 e), one FFMA and one multiply before the
+// SFU's ex2: a few ulps from exp before P's rounding.
 //
 // What bounds them: operations (6 and 8 S^2 D flops per (b, h), half
 // with the causal mask, on O(S D) elements moved).
 //
-// What the design does about it: tiles staged once in shared memory and
-// reused from there, register tiles of fp32 FMAs on the CUDA cores (no
-// tensor cores yet; wgmma and TMA are later work), strides of D + 1 and
-// 32 + 1 floats against bank conflicts, and no tile past the causal
-// diagonal. Neither kernel uses atomics: each output element is summed
-// by one thread in a fixed order, so the gradients are the same from run
-// to run.
+// Neither kernel uses atomics: each output element is summed by one
+// thread in a fixed order, so the gradients are the same from run to
+// run. No tile past the causal diagonal is read.
+//
+// flash_dkv_mma (bf16, fp16): the four products on the tensor cores
+// (mma.sync.m16n8k16, fp32 accumulation). Grid (B * Hkv, ceil(S / 64)),
+// 128 threads; blockIdx.y = 0 is key tile 0, whose causal walk is the
+// longest, so the heaviest blocks start first. A block keeps its 64 keys
+// of K and V in shared memory; each warp owns 16 of them as the mma's M
+// dimension, so its dK and dV accumulators (16 x D fp32 each) are its
+// own. The block walks the G query heads of its kv head and, for each,
+// the BQ-row tiles of q and dout (with their lse and delta) that can see
+// its keys, through a 2-stage cp.async ring: the next tile is in flight
+// while this one is multiplied. Per tile and warp:
+//   S^T = K . q^T          (K by ldmatrix as A, q by ldmatrix as B)
+//   P^T = exp(S^T D^-1/2 - lse), masked, rounded to dout's type
+//   dV += P^T . dout       (P^T from the accumulators as A, dout by
+//                           ldmatrix.trans)
+//   dP^T = V . dout^T
+//   dS^T = P^T (dP^T - delta), rounded to q's type
+//   dK += dS^T . q         (q by ldmatrix.trans)
+// The bound on it is registers: dK and dV hold 2 x 16 x D fp32 in each
+// warp, 128 a thread at D = 128, so BQ is 32 at D = 128 (64 below) and
+// S^T is spent (packed into P^T) before dP^T is formed; K and V come
+// from shared memory each time rather than living in registers. Rows of
+// D + 8 elements keep ldmatrix free of bank conflicts.
+//
+// flash_dkv (fp32) and flash_dq (every type): fp32 FMAs on the CUDA
+// cores, with tiles staged once in shared memory as fp32 and reused from
+// there, and strides of D + 1 and 32 + 1 floats against bank conflicts.
 //
 // dQ: grid (ceil(S / 64), B * H), 128 threads. A block holds a 64-row
 // tile of q and dout with their lse and delta, and walks the 32-key
@@ -43,10 +70,10 @@
 // i < 4), keys tx + 8 j (tx = t % 8, j < 4) of the score tile and
 // columns tx + 8 j (j < D / 8) of dq.
 //
-// dK/dV: grid (ceil(S / 32), B * Hkv), 128 threads. A block holds a
-// 32-key tile of k and v and walks, for each of the G query heads of its
-// kv head, the 32-row tiles of q and dout that can see those keys; dk
-// and dv stay in fp32 registers across the whole walk. Thread t owns
+// dK/dV (fp32): grid (ceil(S / 32), B * Hkv), 128 threads. A block holds
+// a 32-key tile of k and v and walks, for each of the G query heads of
+// its kv head, the 32-row tiles of q and dout that can see those keys;
+// dk and dv stay in fp32 registers across the whole walk. Thread t owns
 // rows ty + 16 i (i < 2), keys tx + 8 j (j < 4) of the score tile, and
 // keys ty + 16 i (i < 2), columns tx + 8 j (j < D / 8) of dk and dv.
 //
@@ -327,6 +354,198 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- dK/dV, tensor cores ---
+
+constexpr int kTcBK = 64;
+
+template <int D>
+__host__ __device__ constexpr int dkv_mma_bq() { return D >= 128 ? 32 : 64; }
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K, V; 2 stages of (q, dout) in the input type; 2 of (lse, delta)
+  return 2 * size_t(2 * kTcBK + 4 * dkv_mma_bq<D>()) * tc_ld<D>() +
+         sizeof(float) * 4 * dkv_mma_bq<D>();
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int S, int H, int Hkv,
+                         int causal, float scale) {
+  constexpr int LD = tc_ld<D>();
+  constexpr int BQ = dkv_mma_bq<D>();
+  constexpr int KD = D / 16;     // k-steps over D
+  constexpr int NQ = BQ / 8;     // n-tiles over the tile's queries
+  constexpr int ND = D / 8;      // n-tiles over D
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  T* Ks = reinterpret_cast<T*>(smem_tc);     // [kTcBK][LD]
+  T* Vs = Ks + kTcBK * LD;                   // [kTcBK][LD]
+  T* Qs = Vs + kTcBK * LD;                   // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;                 // [2][BQ][LD]
+  float* rows_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);
+  // rows_s: [2][lse[BQ], delta[BQ]]
+
+  const int bhk = blockIdx.x;
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int G = H / Hkv;
+  const int k0 = blockIdx.y * kTcBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 16 * warp;              // this warp's first key
+  const int key0 = kw0 + g;                    // and key0 + 8
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int per_head = n_qt - qt0;
+  const int n_it = G * per_head;
+
+  // the q, dout, lse and delta tiles of step `it` into ring stage `st`
+  auto stage = [&](int it, int st) {
+    const int h = hk * G + it / per_head;
+    const int q0 = (qt0 + it % per_head) * BQ;
+    cp_tile<T, BQ, D>(Qs + st * BQ * LD, q, b, h, H, S, q0);
+    cp_tile<T, BQ, D>(dOs + st * BQ * LD, dout, b, h, H, S, q0);
+    if (threadIdx.x < 2 * BQ) {
+      const int i = threadIdx.x % BQ, qi = q0 + i;
+      const float* src = threadIdx.x < BQ ? lse : delta;
+      const int64_t off = (int64_t(b) * H + h) * S + qi;
+      cp_async4(rows_s + st * 2 * BQ + threadIdx.x, qi < S ? src + off : src,
+                qi < S ? 4 : 0);
+    }
+  };
+
+  cp_tile<T, kTcBK, D>(Ks, k, b, hk, Hkv, S, k0);
+  cp_tile<T, kTcBK, D>(Vs, v, b, hk, Hkv, S, k0);
+  stage(0, 0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();   // step it landed; every warp is done with it - 1
+    if (it + 1 < n_it) stage(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    const int st = it & 1;
+    const T* Qt = Qs + st * BQ * LD;
+    const T* dOt = dOs + st * BQ * LD;
+    const float* lse_t = rows_s + st * 2 * BQ;
+    const float* del_t = lse_t + BQ;
+    const int q0 = (qt0 + it % per_head) * BQ;
+    // masks only where a key of this warp can pass a query of the tile,
+    // or at a ragged edge
+    const bool edge = q0 + BQ > S || kw0 + 16 > S ||
+                      (causal && kw0 + 15 > q0);
+
+    // S^T = K . q^T, then P^T rounded to the input type
+    float pt[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4];
+      ldsm_x4(ka, frag_a<LD>(Ks, 16 * warp, 16 * kk, lane));
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t qb[4];
+        ldsm_x4(qb, frag_bt<LD>(Qt, 8 * n, 16 * kk, lane));
+        mma16816<T>(pt[n], ka, qb[0], qb[1]);
+        mma16816<T>(pt[n + 1], ka, qb[2], qb[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);   // query of the tile
+        // exp(s D^-1/2 - lse) as 2^((s D^-1/2 - lse) log2 e); a masked
+        // key's weight is exactly 0, as exp(-1e30 - lse) is
+        float p = exp2_approx(fmaf(pt[n][e], scale, -lse_t[c]) * kLog2e);
+        if (edge) {
+          const int qi = q0 + c, kj = key0 + 8 * (e >> 1);
+          if (kj >= S || qi >= S || (causal && kj > qi)) p = 0.f;
+        }
+        pt[n][e] = round_to<T>(p);
+      }
+
+    // dV += P^T . dout
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+      uint32_t pa[4];
+      acc_to_a<T>(pa, pt[2 * kk], pt[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t ob[4];
+        ldsm_x4_t(ob, frag_b<LD>(dOt, 16 * kk, 8 * n, lane));
+        mma16816<T>(dv_acc[n], pa, ob[0], ob[1]);
+        mma16816<T>(dv_acc[n + 1], pa, ob[2], ob[3]);
+      }
+    }
+
+    // dP^T = V . dout^T, then dS^T = P^T (dP^T - delta)
+    float dpt[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t va[4];
+      ldsm_x4(va, frag_a<LD>(Vs, 16 * warp, 16 * kk, lane));
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t ob[4];
+        ldsm_x4(ob, frag_bt<LD>(dOt, 8 * n, 16 * kk, lane));
+        mma16816<T>(dpt[n], va, ob[0], ob[1]);
+        mma16816<T>(dpt[n + 1], va, ob[2], ob[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[n][e] = pt[n][e] * (dpt[n][e] - del_t[8 * n + 2 * t + (e & 1)]);
+
+    // dK += dS^T . q (dS^T rounded to q's type in acc_to_a)
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+      uint32_t sa[4];
+      acc_to_a<T>(sa, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t qb[4];
+        ldsm_x4_t(qb, frag_b<LD>(Qt, 16 * kk, 8 * n, lane));
+        mma16816<T>(dk_acc[n], sa, qb[0], qb[1]);
+        mma16816<T>(dk_acc[n + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key0 + 8 * r;
+    if (kj >= S) continue;
+    const int64_t off = row_offset(b, kj, hk, Hkv, S, D) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack2<T>(
+          scale * dk_acc[n][2 * r], scale * dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
+          pack2<T>(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launch ---
 
 template <typename T, int D>
@@ -364,6 +583,24 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return int(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_dkv_mma(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, int B, int S, int H, int Hkv,
+                   int causal, float scale, cudaStream_t stream) {
+  const size_t smem = dkv_mma_smem_bytes<D>();
+  auto kernel = flash_dkv_mma_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(B * Hkv, (S + kTcBK - 1) / kTcBK);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, causal, scale);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, void* dq, int B, int S,
@@ -382,6 +619,15 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout,
                    S, H, Hkv, causal, scale, stream)
 }
 
+template <typename T>
+int dkv_mma_typed(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int B, int S, int H, int Hkv, int D,
+                  int causal, float scale, cudaStream_t stream) {
+  FLASH_DISPATCH_D(D, launch_dkv_mma, T, q, k, v, dout, lse, delta, dk, dv,
+                   B, S, H, Hkv, causal, scale, stream)
+}
+
 bool bad_shape(int B, int S, int H, int Hkv) {
   return B < 0 || S < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
          int64_t(B) * H > 65535;
@@ -389,8 +635,9 @@ bool bad_shape(int B, int S, int H, int Hkv) {
 
 }  // namespace
 
-// Each returns 0 on success, -1 for arguments the kernel does not take,
-// else the cudaError_t of the launch.
+// Each returns 0 on success, -1 for arguments the kernel does not take
+// (flash_dkv takes fp32 alone, flash_dkv_mma bf16 and fp16 alone), else
+// the cudaError_t of the launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, int B, int S, int H,
@@ -408,9 +655,20 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int B,
                          int S, int H, int Hkv, int D, int dtype, int causal,
                          float scale, void* stream) {
+  if (bad_shape(B, S, H, Hkv) || dtype != 0) return -1;
+  if (B == 0 || S == 0) return 0;
+  return dkv_typed<float>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                          D, causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_dkv_mma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv, int B,
+                             int S, int H, int Hkv, int D, int dtype,
+                             int causal, float scale, void* stream) {
   if (bad_shape(B, S, H, Hkv)) return -1;
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_T(dtype, dkv_typed, q, k, v, dout, lse, delta, dk, dv, B, S,
-                   H, Hkv, D, causal, scale, s)
+  FLASH_DISPATCH_T16(dtype, dkv_mma_typed, q, k, v, dout, lse, delta, dk, dv,
+                     B, S, H, Hkv, D, causal, scale, s)
 }

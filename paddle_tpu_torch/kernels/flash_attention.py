@@ -20,6 +20,16 @@ h // (H / Hkv)); the log-sum-exp of each row comes as float32
   launches ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` for CUDA
   tensors and runs the plain versions for CPU tensors. On CUDA it
   launches the kernels or raises; it never falls back.
+
+Routes on CUDA, a fixed function of the input type (:func:`route`):
+bf16 and fp16 take the tensor-core kernels (``flash_fwd_mma``,
+``flash_dkv_mma``: ``mma.sync`` on tiles in the input type, and
+exponentials as 2^x with the scale and log2 e folded in, a few ulps from
+the plain versions' exp before P's rounding), fp32 takes
+the CUDA-core kernels (``flash_fwd``, ``flash_dkv``: fp32 FMAs, since
+the tensor cores have no full-fp32 product). ``flash_dq`` runs on the
+CUDA cores for every type. A failed launch raises; neither route gives
+way to the other or to the plain version.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 
 from . import _build
 
-__all__ = ["launch_counts", "KERNEL_HEAD_DIMS", "check_args",
+__all__ = ["launch_counts", "route_counts", "route", "KERNEL_HEAD_DIMS", "check_args",
            "flash_delta", "flash_fwd_reference", "flash_bwd_reference",
            "sdpa_reference", "sdpa_reference_with_lse", "FlashAttention",
            "flash_attention", "flash_attention_with_lse",
@@ -42,6 +52,18 @@ __all__ = ["launch_counts", "KERNEL_HEAD_DIMS", "check_args",
 #: kernel and nowhere else; a caller that wants to see what a run
 #: launched clears it first.
 launch_counts: collections.Counter = collections.Counter()
+
+#: the same launches by ``"<kernel>/<route>"`` (``"flash_fwd/tensor_core"``,
+#: ``"flash_dkv/cuda_core"``, ...), kept beside ``launch_counts`` so that
+#: a run can show which route its kernels took
+route_counts: collections.Counter = collections.Counter()
+
+#: the C entry of each (kernel, route)
+_ENTRY = {("flash_fwd", "tensor_core"): "flash_fwd_mma",
+          ("flash_fwd", "cuda_core"): "flash_fwd",
+          ("flash_dq", "cuda_core"): "flash_dq",
+          ("flash_dkv", "tensor_core"): "flash_dkv_mma",
+          ("flash_dkv", "cuda_core"): "flash_dkv"}
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -244,61 +266,90 @@ def sdpa_reference_with_lse(q, k, v, causal=False):
 
 # -- kernels ------------------------------------------------------------------
 
+def route(name, dtype):
+    """The route of kernel ``name`` for CUDA inputs of ``dtype``:
+    "tensor_core" for the bf16/fp16 forward and dK/dV, else
+    "cuda_core"."""
+    if name != "flash_dq" and dtype in (torch.bfloat16, torch.float16):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _bind(lib, names, n_ptrs):
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
 def _bind_fwd(lib):
-    fn = lib.flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    _bind(lib, ("flash_fwd", "flash_fwd_mma"), 5)
 
 
 def _bind_bwd(lib):
-    lib.flash_dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    lib.flash_dq.restype = ctypes.c_int
-    lib.flash_dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    lib.flash_dkv.restype = ctypes.c_int
+    _bind(lib, ("flash_dq",), 7)
+    _bind(lib, ("flash_dkv", "flash_dkv_mma"), 8)
 
 
-def _run(name, fn, tensors, q, k, causal):
-    """Call the C entry ``fn`` on the data of ``tensors`` and the shape
-    arguments of (q, k) on the current stream; raise on an error; count
-    the launch under ``name``."""
+def _call(fn, args, device):
+    """``fn(*args, stream)`` with ``device`` current and its current
+    stream: a C entry's call."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def _run(name, lib, tensors, q, k, causal):
+    """Launch kernel ``name`` of ``lib`` by the route of q's type on the
+    data of ``tensors`` and the shape arguments of (q, k), on the current
+    stream; raise on an error; count the launch under ``name`` and
+    ``name/route``."""
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: arguments must be contiguous")
+    way = route(name, q.dtype)
+    if way == "tensor_core" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the tensor-core kernel copies 16-byte "
+                         f"chunks; arguments must be 16-byte aligned")
     B, S, H, D = q.shape
     shape = (B, S, H, k.shape[2], D, _build.DTYPE_CODE[str(q.dtype)],
              int(bool(causal)), 1.0 / (D ** 0.5))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), *shape, stream)
+    err = _call(getattr(lib, _ENTRY[(name, way)]),
+                (*(t.data_ptr() for t in tensors), *shape), q.device)
     if err != 0:
         why = "unsupported arguments" if err < 0 else "cudaError_t"
-        raise RuntimeError(f"{name} launch failed: {why} {err}")
+        raise RuntimeError(f"{name} ({way}) launch failed: {why} {err}")
     launch_counts[name] += 1
+    route_counts[f"{name}/{way}"] += 1
 
 
 def _fwd_kernel(q, k, v, causal):
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B * H, 1, S), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_fwd", _bind_fwd)
-    _run("flash_fwd", lib.flash_fwd, (q, k, v, out, lse), q, k, causal)
+    _run("flash_fwd", _build.load("flash_fwd", _bind_fwd),
+         (q, k, v, out, lse), q, k, causal)
     return out, lse
+
+
+def _dq_kernel(q, k, v, dout, lse, delta, causal):
+    dq = torch.empty_like(q)
+    _run("flash_dq", _build.load("flash_bwd", _bind_bwd),
+         (q, k, v, dout, lse, delta, dq), q, k, causal)
+    return dq
+
+
+def _dkv_kernel(q, k, v, dout, lse, delta, causal):
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _run("flash_dkv", _build.load("flash_bwd", _bind_bwd),
+         (q, k, v, dout, lse, delta, dk, dv), q, k, causal)
+    return dk, dv
 
 
 def _bwd_kernels(q, k, v, out, lse, dout, causal, g_lse):
     delta = flash_delta(out, dout, g_lse).contiguous()
     lse = lse.contiguous()
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = _build.load("flash_bwd", _bind_bwd)
-    _run("flash_dq", lib.flash_dq, (q, k, v, dout, lse, delta, dq), q, k,
-         causal)
-    _run("flash_dkv", lib.flash_dkv, (q, k, v, dout, lse, delta, dk, dv),
-         q, k, causal)
-    return dq, dk, dv
+    dq = _dq_kernel(q, k, v, dout, lse, delta, causal)
+    return (dq, *_dkv_kernel(q, k, v, dout, lse, delta, causal))
 
 
 def _fwd(q, k, v, causal):

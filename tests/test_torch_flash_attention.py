@@ -8,8 +8,9 @@ on the CPU) and against its XLA path ``_sdpa_reference_with_lse`` under
 ``jax.vjp``: grouped heads G in {1, 2, 4}, causal and not, a ragged S
 and a cotangent on the log-sum-exp. The CUDA kernels run only on the
 card, where ``chip_smoke.py`` compiles them and holds them against
-these plain versions; here the wrappers' CPU dispatch, argument checks
-and C interfaces are checked.
+these plain versions; here the wrappers' CPU dispatch, the route each
+input type takes on CUDA (the C call stubbed), argument checks and C
+interfaces are checked.
 
 Tolerances: fp32, the same function with sums in other orders, the
 scale multiplied (kernels) or divided (reference) and an online softmax
@@ -157,18 +158,62 @@ def test_wrapper_checks_and_dispatch(m):
     assert not fa.launch_counts         # the CPU runs no kernel
 
 
+@pytest.mark.parametrize("dtype,code,fwd,dkv", [
+    ("bfloat16", 2, "flash_fwd_mma", "flash_dkv_mma"),
+    ("float16", 1, "flash_fwd_mma", "flash_dkv_mma"),
+    ("float32", 0, "flash_fwd", "flash_dkv")])
+def test_cuda_route_by_dtype(m, monkeypatch, dtype, code, fwd, dkv):
+    """The C entry each kernel calls on CUDA: bf16 and fp16 take the
+    tensor-core forward and dK/dV, fp32 the CUDA-core ones, and dQ the
+    CUDA cores for every type. The library and the C call are stubbed,
+    so nothing is built or launched; the counts record kernel and
+    route."""
+    torch, fa = m.torch, m.fa
+    lib = types.SimpleNamespace(**{n: n for n in fa._ENTRY.values()})
+    calls = []
+    monkeypatch.setattr(fa._build, "load", lambda name, bind: lib)
+    monkeypatch.setattr(fa, "_call", lambda fn, args, device:
+                        calls.append((fn, args)) or 0)
+    dt = getattr(torch, dtype)
+    q, kv = torch.zeros(2, 8, 4, 32, dtype=dt), torch.zeros(2, 8, 2, 32,
+                                                            dtype=dt)
+    fa.launch_counts.clear()
+    fa.route_counts.clear()
+    out, lse = fa._fwd_kernel(q, kv, kv, True)
+    fa._bwd_kernels(q, kv, kv, out, lse, q, True, None)
+    assert [fn for fn, _ in calls] == [fwd, "flash_dq", dkv]
+    for (_, args), n_ptrs in zip(calls, (5, 7, 8)):
+        assert args[n_ptrs:] == (2, 8, 4, 2, 32, code, 1, 1 / 32 ** 0.5)
+    way = fa.route("flash_fwd", dt)
+    assert way == ("cuda_core" if dtype == "float32" else "tensor_core")
+    assert fa.launch_counts == {"flash_fwd": 1, "flash_dq": 1,
+                                "flash_dkv": 1}
+    assert fa.route_counts == {f"flash_fwd/{way}": 1,
+                               "flash_dq/cuda_core": 1,
+                               f"flash_dkv/{way}": 1}
+    # the tensor-core kernels copy 16-byte chunks: a misaligned view
+    # raises there and passes on the CUDA-core route
+    skew = torch.zeros(q.numel() + 1, dtype=dt)[1:].view(q.shape)
+    if way == "tensor_core":
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa._fwd_kernel(skew, kv, kv, True)
+    else:
+        fa._fwd_kernel(skew, kv, kv, True)
+
+
 def test_c_interfaces(m, monkeypatch):
     """The exported C functions take as many arguments as their ctypes
     bindings declare, and the sources build with the others' command."""
     from paddle_tpu_torch.kernels import _build
-    lib = types.SimpleNamespace(flash_fwd=types.SimpleNamespace(),
-                                flash_dq=types.SimpleNamespace(),
-                                flash_dkv=types.SimpleNamespace())
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                   for n in m.fa._ENTRY.values()})
     m.fa._bind_fwd(lib)
     m.fa._bind_bwd(lib)
     for src, fn, n in (("flash_fwd", "flash_fwd", 14),
+                       ("flash_fwd", "flash_fwd_mma", 14),
                        ("flash_bwd", "flash_dq", 16),
-                       ("flash_bwd", "flash_dkv", 17)):
+                       ("flash_bwd", "flash_dkv", 17),
+                       ("flash_bwd", "flash_dkv_mma", 17)):
         text = (_build.CSRC / f"{src}.cu").read_text()
         found = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
         assert found, fn
