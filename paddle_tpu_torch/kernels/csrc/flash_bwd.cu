@@ -219,14 +219,16 @@ constexpr size_t dkv_smem_bytes() {
                           2 * kKvBQ * (kKvBK + 1) + 2 * kKvBQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int Hkv, int causal,
-                     float scale) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int H, int Hkv,
+                     int causal, float scale) {
   constexpr int LDD = D + 1;
   constexpr int LDS = kKvBK + 1;
   constexpr int RI = 2;        // score tile: query rows per thread
@@ -249,8 +251,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kKvBK;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
 
-  load_tile<T, kKvBK, D>(Ks, LDD, k, b, hk, Hkv, S, k0);
-  load_tile<T, kKvBK, D>(Vs, LDD, v, b, hk, Hkv, S, k0);
+  load_tile<float, kKvBK, D>(Ks, LDD, k, b, hk, Hkv, S, k0);
+  load_tile<float, kKvBK, D>(Vs, LDD, v, b, hk, Hkv, S, k0);
   float dk_acc[KI][DJ], dv_acc[KI][DJ];
 #pragma unroll
   for (int i = 0; i < KI; ++i)
@@ -265,8 +267,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kKvBQ;
       __syncthreads();  // the last tile's products are done with smem
-      load_tile<T, kKvBQ, D>(Qs, LDD, q, b, h, H, S, q0);
-      load_tile<T, kKvBQ, D>(dOs, LDD, dout, b, h, H, S, q0);
+      load_tile<float, kKvBQ, D>(Qs, LDD, q, b, h, H, S, q0);
+      load_tile<float, kKvBQ, D>(dOs, LDD, dout, b, h, H, S, q0);
       if (threadIdx.x < kKvBQ) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < S ? lse[row0 + qi] : 0.f;
@@ -310,9 +312,9 @@ __global__ void __launch_bounds__(kThreads)
           const int kj = k0 + c;
           float x = s[i][j] * scale;
           if (kj >= S || qi >= S || (causal && kj > qi)) x = kNegInf;
-          const float p = round_to<T>(expf(x - lse_s[r]));
+          const float p = expf(x - lse_s[r]);
           Ps[r * LDS + c] = p;
-          dSs[r * LDS + c] = round_to<T>(p * (dp[i][j] - del_s[r]));
+          dSs[r * LDS + c] = p * (dp[i][j] - del_s[r]);
         }
       }
       __syncthreads();
@@ -348,8 +350,8 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t off = row_offset(b, kj, hk, Hkv, S, D);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 8 * j] = from_f<T>(scale * dk_acc[i][j]);
-      dv[off + tx + 8 * j] = from_f<T>(dv_acc[i][j]);
+      dk[off + tx + 8 * j] = scale * dk_acc[i][j];
+      dv[off + tx + 8 * j] = dv_acc[i][j];
     }
   }
 }
@@ -552,34 +554,37 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int S,
               int H, int Hkv, int causal, float scale, cudaStream_t stream) {
+  const int64_t gx = (S + kDqBQ - 1) / kDqBQ, gy = int64_t(B) * H;
+  if (!grid_fits(gx, gy)) return -1;
   const size_t smem = dq_smem_bytes<D>();
   auto kernel = flash_dq_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((S + kDqBQ - 1) / kDqBQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), S, H, Hkv, causal, scale);
   return int(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int B, int S, int H, int Hkv, int causal,
                float scale, cudaStream_t stream) {
+  const int64_t gx = (S + kKvBK - 1) / kKvBK, gy = int64_t(B) * Hkv;
+  if (!grid_fits(gx, gy)) return -1;
   const size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_dkv_kernel<T, D>;
+  auto kernel = flash_dkv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((S + kKvBK - 1) / kKvBK, B * Hkv);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, causal, scale);
+  kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv,
+      causal, scale);
   return int(cudaGetLastError());
 }
 
@@ -588,13 +593,14 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int B, int S, int H, int Hkv,
                    int causal, float scale, cudaStream_t stream) {
+  const int64_t gx = int64_t(B) * Hkv, gy = (S + kTcBK - 1) / kTcBK;
+  if (!grid_fits(gx, gy)) return -1;
   const size_t smem = dkv_mma_smem_bytes<D>();
   auto kernel = flash_dkv_mma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(B * Hkv, (S + kTcBK - 1) / kTcBK);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, causal, scale);
@@ -611,15 +617,6 @@ int dq_typed(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T>
-int dkv_typed(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dk, void* dv,
-              int B, int S, int H, int Hkv, int D, int causal, float scale,
-              cudaStream_t stream) {
-  FLASH_DISPATCH_D(D, launch_dkv, T, q, k, v, dout, lse, delta, dk, dv, B,
-                   S, H, Hkv, causal, scale, stream)
-}
-
-template <typename T>
 int dkv_mma_typed(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dk, void* dv, int B, int S, int H, int Hkv, int D,
@@ -629,8 +626,7 @@ int dkv_mma_typed(const void* q, const void* k, const void* v,
 }
 
 bool bad_shape(int B, int S, int H, int Hkv) {
-  return B < 0 || S < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
-         int64_t(B) * H > 65535;
+  return B < 0 || S < 0 || H < 1 || Hkv < 1 || H % Hkv != 0;
 }
 
 }  // namespace
@@ -657,8 +653,9 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          float scale, void* stream) {
   if (bad_shape(B, S, H, Hkv) || dtype != 0) return -1;
   if (B == 0 || S == 0) return 0;
-  return dkv_typed<float>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                          D, causal, scale, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_DIM(D, launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, S,
+                     H, Hkv, causal, scale, s)
 }
 
 extern "C" int flash_dkv_mma(const void* q, const void* k, const void* v,

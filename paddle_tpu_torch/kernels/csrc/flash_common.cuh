@@ -268,6 +268,22 @@ __device__ __forceinline__ float quad_max(float x) {
     default: return -1;                              \
   }
 
+// The same for a template of D alone (the fp32 kernels).
+#define FLASH_DISPATCH_DIM(D, FN, ...)               \
+  switch (D) {                                       \
+    case 16: return FN<16>(__VA_ARGS__);             \
+    case 32: return FN<32>(__VA_ARGS__);             \
+    case 64: return FN<64>(__VA_ARGS__);             \
+    case 128: return FN<128>(__VA_ARGS__);           \
+    default: return -1;                              \
+  }
+
+// Whether a grid of gx x gy blocks is within the card's limits
+// (gx < 2^31, gy < 2^16); a launch beyond them returns -1.
+inline bool grid_fits(int64_t gx, int64_t gy) {
+  return gx <= 0x7fffffff && gy <= 65535;
+}
+
 // return FN<T>(args...) for a run-time type code (0 fp32, 1 fp16,
 // 2 bf16, the codes of the Python wrappers); -1 for another.
 #define FLASH_DISPATCH_T(CODE, FN, ...)                        \

@@ -78,10 +78,11 @@ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int S, int H, int Hkv,
                      int causal, float scale) {
   constexpr int LDD = D + 1;
@@ -100,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBQ;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
 
-  load_tile<T, kBQ, D>(Qs, LDD, q, b, h, H, S, q0);
+  load_tile<float, kBQ, D>(Qs, LDD, q, b, h, H, S, q0);
 
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
@@ -116,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the last tile's P.V is done with KVs and Ps
-    load_tile<T, kBK, D>(KVs, LDD, k, b, hk, Hkv, S, k0);
+    load_tile<float, kBK, D>(KVs, LDD, k, b, hk, Hkv, S, k0);
     __syncthreads();
 
     float s[RI][CJ];
@@ -160,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < CJ; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
-        Ps[r * LDP + tx + 8 * j] = round_to<T>(p);
+        Ps[r * LDP + tx + 8 * j] = p;
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
       rs += __shfl_xor_sync(0xffffffffu, rs, 2);
@@ -171,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();  // P complete; every read of K done
-    load_tile<T, kBK, D>(KVs, LDD, v, b, hk, Hkv, S, k0);
+    load_tile<float, kBK, D>(KVs, LDD, v, b, hk, Hkv, S, k0);
     __syncthreads();
 
 #pragma unroll 4
@@ -194,38 +195,29 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float ls = fmaxf(l[i], 1e-30f);
-    T* o = out + row_offset(b, qi, h, H, S, D);
+    float* o = out + row_offset(b, qi, h, H, S, D);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[tx + 8 * j] = from_f<T>(acc[i][j] / ls);
+    for (int j = 0; j < DJ; ++j) o[tx + 8 * j] = acc[i][j] / ls;
     if (tx == 0) lse[int64_t(bh) * S + qi] = m[i] + logf(ls);
   }
 }
 
-
-
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int S, int H, int Hkv, int causal,
            float scale, cudaStream_t stream) {
+  const int64_t gx = (S + kBQ - 1) / kBQ, gy = int64_t(B) * H;
+  if (!grid_fits(gx, gy)) return -1;
   const size_t smem = fwd_smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv,
-      causal, scale);
+  kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H,
+      Hkv, causal, scale);
   return int(cudaGetLastError());
-}
-
-template <typename T>
-int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 float* lse, int B, int S, int H, int Hkv, int D,
-                 int causal, float scale, cudaStream_t stream) {
-  FLASH_DISPATCH_D(D, launch, T, q, k, v, out, lse, B, S, H, Hkv, causal,
-                   scale, stream)
 }
 
 // ------------------------------------------------- tensor cores ----
@@ -385,13 +377,14 @@ template <typename T, int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int S, int H, int Hkv, int causal,
                float scale, cudaStream_t stream) {
+  const int64_t gx = int64_t(B) * H, gy = (S + kBQ - 1) / kBQ;
+  if (!grid_fits(gx, gy)) return -1;
   const size_t smem = fwd_mma_smem_bytes<D>();
   auto kernel = flash_fwd_mma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv,
       causal, scale);
@@ -407,8 +400,7 @@ int launch_mma_typed(const void* q, const void* k, const void* v, void* out,
 }
 
 bool bad_shape(int B, int S, int H, int Hkv) {
-  return B < 0 || S < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
-         int64_t(B) * H > 65535;
+  return B < 0 || S < 0 || H < 1 || Hkv < 1 || H % Hkv != 0;
 }
 
 }  // namespace
@@ -422,8 +414,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* stream) {
   if (bad_shape(B, S, H, Hkv) || dtype != 0) return -1;
   if (B == 0 || S == 0) return 0;
-  return launch_typed<float>(q, k, v, out, lse, B, S, H, Hkv, D, causal,
-                             scale, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_DIM(D, launch, q, k, v, out, lse, B, S, H, Hkv, causal,
+                     scale, s)
 }
 
 extern "C" int flash_fwd_mma(const void* q, const void* k, const void* v,
