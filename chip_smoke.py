@@ -19,15 +19,19 @@ Phases, each printed as it ends:
   1. the card's name and power limit; every kernel built (one nvcc per
      source, the five sources at once: paged_decode, paged_decode_int8,
      mixed_paged, flash_fwd, flash_bwd), with the build seconds and
-     ptxas's register and spill counts; TF32 off for every fp32 product;
+     ptxas's register and spill counts (none allowed in a tensor-core
+     kernel or a mixed kernel); TF32 off for every fp32 product;
   2. each kernel against its plain version at the shapes the main path
      gives it: max-abs error, and its time beside the plain version's,
      one PyTorch library call's and the card's bound for the same work
      (paged_decode at bs 16; paged_decode_int8 at bs 16 and 32, rows of
-     1, 1999, 512 and 0 keys, a poisoned NULL page; mixed_paged at
-     T=128 with rows (q_len, kv_len) of (128, 1536), (1, 1999), (5, 512)
-     and (0, 0), and a decode-only T=16 shape, the NULL page poisoned
-     with 1e3 and then with NaN);
+     1, 1999, 512 and 0 keys, a poisoned NULL page; mixed_paged in
+     bf16, fp16 and fp32 at T=128 with rows (q_len, kv_len) of (128,
+     1536), (1, 1999), (5, 512) and (0, 0), at a decode-only T=16 shape,
+     and at hd=64, G=8, bs=32 with windows across split boundaries, the
+     NULL page poisoned with 1e3 and then with NaN: each launch's route,
+     two launches bit-identical, bf16/fp16 row by row, the workspace's
+     bytes);
   3. a small input served on the card and on the CPU with the same
      weights: identical greedy tokens;
   4. fp KV serving: llama3-8b (32 layers, bf16, random weights from
@@ -53,8 +57,8 @@ Phases, each printed as it ends:
      causal and not, and at a ragged S=1000, in bf16 and fp32, in fp16
      at S=2048 and 1000 causal, and at D=16, 32 and 64 (B=1, S=300, H=8,
      Hkv=2) in bf16 and fp16: out and lse, then dq, dk and dv, and the
-     route each launch took (tensor cores for the bf16/fp16 forward and
-     dK/dV, CUDA cores otherwise); two bf16 dK/dV launches bit-identical;
+     route each launch took (tensor cores for bf16/fp16, CUDA cores for
+     fp32); two bf16 dQ and two bf16 dK/dV launches bit-identical;
      at S=2048 causal each kernel's time beside its bound, its plain
      version and PyTorch's SDPA (forward, backward, both), per type;
   8. the tiny preset in fp32 on the card and on the CPU from the same
@@ -67,8 +71,7 @@ Phases, each printed as it ends:
      and 10 timed steps with the counts zeroed just before: tokens/s,
      MFU by bench.py's formula, peak memory, a falling loss, and each
      FA2 kernel launched once per layer and step (the forward twice:
-     "core_attn" recomputes it), the forward and dK/dV on the
-     tensor-core route;
+     "core_attn" recomputes it), all on the tensor-core route;
  10. (run after phase 6) the tensor-parallel mesh engine at llama3-8b
      on phase 4's model:
      DecodeEngine(capacity=4, s_max=1600, block_size=16,
@@ -76,7 +79,8 @@ Phases, each printed as it ends:
      spec_decode=True) serves phase 5's 8 requests and 2 of repeating
      prompts, 16 new tokens each; every step is one mixed step. Counts
      zeroed just before and read just after: mixed_paged launched once
-     per layer and mixed step, paged_decode never. Decode tokens/s, the
+     per layer and mixed step, all on the tensor-core route,
+     paged_decode never. Decode tokens/s, the
      median mixed-step wall at T=16 and T=128, device calls, peak
      memory; one mixed step holding a 128-token chunk beside decode
      lanes is replayed with the kernel and the plain attention (bf16:
@@ -373,20 +377,37 @@ def phase_kernels_int8(on_card, seed):
 
 # -- phase 2: mixed prefill-chunk + decode kernel against its plain version ---
 
-MIXED_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+MIXED_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2,
+             torch.float32: 2e-5}
 MIXED_TOL_WHY = ("max-abs error over the valid query slots; fp32: the "
                  "kernel multiplies by 1/sqrt(hd) where the plain version "
                  "divides, and sums in other orders (the reference's own "
-                 "2e-5); bf16: times max(1, largest |value|), the same "
-                 "arithmetic on bf16 inputs")
+                 "2e-5); bf16/fp16: times max(1, largest |value|), the "
+                 "same arithmetic on 16-bit inputs")
+# bf16 and fp16 are also held row by row: each valid query row's largest
+# error over that row's largest |plain| value. The output is fp32 and
+# not rounded. Q.K^T is exact products summed in fp32 in another order;
+# P enters P.V as P_hi + P_lo in the input type, within 2^-16 of P
+# (fp16: 2^-22, after scaling by 2^14); exp is ex2 with the scale folded
+# in, a few ulps. Each of those is at most 2^-16 of a weight, and the
+# weighted values of a row that averages 2000 keys cancel to about a
+# tenth of their sum, which amplifies a relative error tenfold. The
+# limit, 2^-12, leaves room for that; a wrong key, tile or split moves a
+# row by a large part of itself.
+MIXED_ROW_TOL = {torch.bfloat16: 2**-12, torch.float16: 2**-12}
+MIXED_ROW_TOL_WHY = ("bf16/fp16: a valid query row's largest error over "
+                     "its largest |plain|; fp32 output, P.V on P_hi + "
+                     "P_lo (2^-16 of P), ex2 and fp32 sums in other "
+                     "orders, amplified by a long row's cancellation: "
+                     "2^-12")
 
 
-def mixed_case(dtype, device, seed, rows, T):
-    """The mixed kernel at llama3-8b shapes: B=len(rows), kvh=8, G=4,
-    hd=128, bs=16; ``rows`` of (q_len, kv_len) over scattered pages. The
-    NULL page holds +1e3 keys and -1e3 values: a read of it within a
-    row's length would show."""
-    B, kvh, G, hd, bs = len(rows), 8, 4, 128, 16
+def mixed_case(dtype, device, seed, rows, T, kvh=8, G=4, hd=128, bs=16):
+    """The mixed kernel at llama3-8b shapes unless told otherwise:
+    B=len(rows), kvh=8, G=4, hd=128, bs=16; ``rows`` of (q_len, kv_len)
+    over scattered pages. The NULL page holds +1e3 keys and -1e3 values:
+    a read of it within a row's length would show."""
+    B = len(rows)
     q_lens = np.asarray([r[0] for r in rows], np.int32)
     kv_lens = np.asarray([r[1] for r in rows], np.int32)
     mb = -(-int(kv_lens.max()) // bs)
@@ -453,29 +474,47 @@ def sdpa_mixed_yardstick(q, kp, vp, table, kv_lens, q_lens):
 
 MIXED_ROWS = {128: ((128, 1536), (1, 1999), (5, 512), (0, 0)),
               16: ((1, 1999), (1, 1536), (1, 512), (0, 0))}
+# Correctness only, at other widths the kernel takes (MIXED_WIDE, T=128):
+# a 128-token window at 972..1099 across the split boundary at 1024 (5
+# splits), a decode row of 8 splits, a 37-token window at 220..256
+# across the boundary at 256, an idle row.
+MIXED_WIDE = dict(G=8, hd=64, bs=32)
+MIXED_WIDE_ROWS = ((128, 1100), (1, 2047), (37, 257), (0, 0))
 
 
 def phase_kernels_mixed(on_card, seed):
     """The mixed kernel against mixed_attn_reference on the valid query
-    slots, at T=128 (a 128-token chunk at offset 1408, a decode row, a
-    verify window of 5 and an idle row) and at the decode-only T=16, in
-    bf16 and fp32. Idle rows are exact zeros. With NaN in the NULL page
-    the kernel's output is bit-identical. Each shape is timed beside its
-    bound, the plain version and gather + SDPA."""
+    slots, in bf16, fp16 and fp32: at T=128 (a 128-token chunk at offset
+    1408, a decode row, a verify window of 5 and an idle row), at the
+    decode-only T=16, and at MIXED_WIDE's widths. Idle rows are exact
+    zeros. On the card each launch's route is checked (tensor cores for
+    bf16/fp16), two launches give the same bits, and with NaN in the
+    NULL page the output is bit-identical; bf16/fp16 rows are held
+    within MIXED_ROW_TOL. The MIXED_ROWS shapes are timed beside their
+    bound, the plain version and gather + SDPA, and must beat the plain
+    version."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     device = "cuda" if on_card else "cpu"
     out = {}
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
         if on_card else None
     flush = (lambda: flush_buf.zero_()) if on_card else None
-    say("mixed", tolerance=repr(MIXED_TOL_WHY))
-    for T, rows in MIXED_ROWS.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            args = mixed_case(dtype, device, seed, rows, T)
+    say("mixed", tolerance=repr(MIXED_TOL_WHY),
+        row_tolerance=repr(MIXED_ROW_TOL_WHY),
+        split_keys=pa.MIXED_SPLIT_KEYS)
+    cases = [(T, rows, {}) for T, rows in MIXED_ROWS.items()]
+    cases.append((128, MIXED_WIDE_ROWS, MIXED_WIDE))
+    for T, rows, widths in cases:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            args = mixed_case(dtype, device, seed, rows, T, **widths)
+            pa.route_counts.clear()
             got = pa.mixed_paged_attention(*args)
+            routes = dict(pa.route_counts)
             want = pa.mixed_attn_reference(*args)
             if on_card:
                 torch.cuda.synchronize()
+            B, _, kvh, G, hd = args[0].shape
+            bs = args[1].shape[1]
             valid = valid_slots(args[5], T)
             check(got.dtype == torch.float32 and got.shape == want.shape,
                   "mixed kernel output is fp32 of q's shape")
@@ -485,22 +524,43 @@ def phase_kernels_mixed(on_card, seed):
             err = float((got - want)[valid].abs().max())
             scale = max(1.0, float(want[valid].abs().max()))
             name = str(dtype).replace("torch.", "")
-            tol = MIXED_TOL[dtype] * (scale if dtype == torch.bfloat16
+            tol = MIXED_TOL[dtype] * (scale if dtype != torch.float32
                                       else 1.0)
-            say("mixed", name="mixed_paged", dtype=name, T=T,
-                rows=json.dumps(rows).replace(" ", ""), max_abs_err=err,
-                tol=tol)
-            check(err <= tol, f"mixed_paged {name} T={T} max-abs {err} "
-                              f"<= {tol}")
+            row_err = row_rel_err(got[valid], want[valid], False) \
+                if dtype in MIXED_ROW_TOL else None
+            case = dict(dtype=name, T=T, hd=hd, G=G, bs=bs,
+                        rows=json.dumps(rows).replace(" ", ""))
+            say("mixed", name="mixed_paged", **case, max_abs_err=err,
+                tol=tol, row_rel_err=row_err,
+                row_tol=MIXED_ROW_TOL.get(dtype),
+                splits=pa.mixed_splits(args[3].shape[1], bs),
+                workspace_bytes=4 * pa.mixed_workspace_floats(
+                    B, T, kvh, G, hd, args[3].shape[1], bs),
+                routes=json.dumps(routes))
+            check(err <= tol, f"mixed_paged {case} max-abs {err} <= {tol}")
+            if row_err is not None:
+                check(row_err <= MIXED_ROW_TOL[dtype],
+                      f"mixed_paged {case} row-relative {row_err} <= "
+                      f"{MIXED_ROW_TOL[dtype]}")
             if not on_card:
                 continue            # the plain version multiplies 0 x NaN
+            way = pa.mixed_route(dtype)
+            check(routes == {f"mixed_paged/{way}": 1},
+                  f"mixed_paged {case} routes {routes}")
+            same_twice = bool(torch.equal(pa.mixed_paged_attention(*args),
+                                          got))
             kp_nan, vp_nan = args[1].clone(), args[2].clone()
             kp_nan[0], vp_nan[0] = float("nan"), float("nan")
             same_nan = bool(torch.equal(pa.mixed_paged_attention(
                 args[0], kp_nan, vp_nan, *args[3:]), got))
-            say("mixed", name="mixed_paged", dtype=name, T=T,
+            say("mixed", name="mixed_paged", **case,
+                two_launches_bit_identical=same_twice,
                 nan_null_page_identical=same_nan)
+            check(same_twice, "two mixed launches give the same bits")
             check(same_nan, "NaN in the NULL page changes no output")
+            del kp_nan, vp_nan
+            if widths:
+                continue            # correctness only
             ms = cuda_ms(lambda: pa.mixed_paged_attention(*args),
                          flush=flush)
             plain_ms = cuda_ms(lambda: pa.mixed_attn_reference(*args),
@@ -511,10 +571,13 @@ def phase_kernels_mixed(on_card, seed):
             lib_err = float((lib.float() - want)[valid].abs().max())
             bound_ms, bound_by = mixed_bound_ms(args[0], args[3], args[4],
                                                 args[5])
-            say("mixed", name="mixed_paged", dtype=name, T=T, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
+            say("mixed", name="mixed_paged", dtype=name, T=T, route=way,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_max_abs_err=lib_err, bound_ms=bound_ms,
                 bound_by=bound_by, share_of_bound=bound_ms / ms)
+            check(ms < plain_ms, f"mixed_paged {name} T={T}: {ms} ms "
+                                 f"faster than its plain version's "
+                                 f"{plain_ms} ms")
             out[(name, T)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
                                   library_ms=lib_ms)
@@ -1030,8 +1093,10 @@ def phase_mesh(on_card, model, args):
     ll.mixed_paged_step = timed_step
     try:
         pa.launch_counts.clear()
+        pa.route_counts.clear()
         reqs, t_decode, t_admit = drive(eng, waves, on_card)
         launches = dict(pa.launch_counts)
+        routes = dict(pa.route_counts)
     finally:
         ll.mixed_paged_step = step
     st = eng.stats()
@@ -1052,6 +1117,9 @@ def phase_mesh(on_card, model, args):
               f"times, expected layers x mixed steps = {L * mixed_steps}")
         check(launches.get("paged_decode", 0) == 0,
               "no paged-decode launch: no step left the mixed path")
+        way = pa.mixed_route(model.embed_tokens.dtype)
+        check(routes == {f"mixed_paged/{way}": L * mixed_steps},
+              f"every mixed launch took the {way} route: {routes}")
     check(st["prefill_chunks"] >= 12 + 8 + 4,
           f"long prompts went in by chunks ({st['prefill_chunks']})")
     check(st["prefix_hit_tokens"] >= 48,
@@ -1072,7 +1140,8 @@ def phase_mesh(on_card, model, args):
         prefix_hit_tokens=st["prefix_hit_tokens"],
         spec_proposed=st["spec"]["proposed"],
         spec_accepted=st["spec"]["accepted"],
-        launches=json.dumps(launches), decode_s=round(t_decode, 4),
+        launches=json.dumps(launches), routes=json.dumps(routes),
+        decode_s=round(t_decode, 4),
         admit_s=round(t_admit, 4),
         decode_tokens_per_s=round(decode_tokens / t_decode, 2),
         peak_mem_gib=round(peak / 2 ** 30, 3))
@@ -1091,11 +1160,13 @@ def replay_mixed_step(cfg, model, snap, device):
     against the plain version on the same inputs (MIXED_TOL), and the
     replay's argmax equals the engine's at every valid slot. The bf16
     argmaxes of the kernel step and the plain step are counted, not
-    held: the kernel's fp32 sums (an online softmax over 64-key tiles)
-    differ from the plain version's by a few 1e-6 per layer, each such
-    difference can flip a bf16 rounding of the attention output, and
-    the flips grow over 32 layers of random weights (on an H100, 11 of
-    131 slots, 1 of the 3 emitted ones, with every layer within 4e-6).
+    held: the kernel's fp32 sums (an online softmax over 64-key tiles
+    and 256-key splits) differ from the plain version's by a few 1e-6
+    per layer, each such difference can flip a bf16 rounding of the
+    attention output, and the flips grow over 32 layers of random
+    weights (on an H100 with the kernel before its split-KV redesign,
+    11 of 131 slots, 1 of the 3 emitted ones, with every layer within
+    4e-6; printed beside this run's count).
     In fp32, weights and pools upcast, every layer's kernel output is
     held within 2e-5 over the valid slots and the argmaxes are equal at
     every valid slot."""
@@ -1137,7 +1208,9 @@ def replay_mixed_step(cfg, model, snap, device):
         argmax_equal_engine=engine_same,
         slots_differing_kernel_vs_plain=int(((k16 != p16) & valid).sum()),
         emitted_differing_kernel_vs_plain=int(((k16 != p16) & emitted)
-                                              .sum()))
+                                              .sum()),
+        before_redesign_slots_differing="11/131",
+        before_redesign_emitted_differing="1/3")
     check(len(errs16) == cfg.num_hidden_layers
           and max(errs16) <= MIXED_TOL.get(dt16, MIXED_TOL[torch.float32]),
           "every layer's attention agrees with the plain version")
@@ -1183,6 +1256,8 @@ def profile_mixed_step(cfg, model, snap, on_card):
     kernels, dev_us, n = device_kernels(prof)
     mixed_us = sum(e.self_device_time_total for e in kernels
                    if "mixed_paged" in e.key)
+    merge_us = sum(e.self_device_time_total for e in kernels
+                   if "mixed_paged_merge" in e.key)
     gemm_us = sum(e.self_device_time_total for e in kernels
                   if "nvjet" in e.key or "gemm" in e.key.lower())
     say("profile", what="mixed_step", T=int(snap["ids"].shape[1]),
@@ -1190,6 +1265,7 @@ def profile_mixed_step(cfg, model, snap, on_card):
         device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
         device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
         mixed_kernel_ms=round(mixed_us / 1e3, 3),
+        of_which_merge_ms=round(merge_us / 1e3, 3),
         gemm_kernels_ms=round(gemm_us / 1e3, 3),
         other_kernels_ms=round((dev_us - mixed_us - gemm_us) / 1e3, 3))
     for e in kernels[:8]:
@@ -1274,7 +1350,7 @@ FLASH_TOL_WHY = ("max-abs error over max |plain| of each output; fp32: "
                  "flips of the roundings to the input type (P, dS, the "
                  "outputs)")
 # The tensor-core kernels' outputs are also held row by row: the
-# largest error in a row of out (a query row) or of dk, dv (a key row)
+# largest error in a row of out, dq (a query row) or dk, dv (a key row)
 # over that row's largest |plain| value, and lse's error over
 # max(1, |plain|) element by element. A whole-tensor scale lets a wrong
 # long causal row pass (its |out| is ~0.04 against row 0's ~3.5); a
@@ -1283,20 +1359,33 @@ FLASH_TOL_WHY = ("max-abs error over max |plain| of each output; fp32: "
 # unit in its last place, at most 2^-7 (bf16) or 2^-10 (fp16) of the
 # row's largest value; the limit is two such units. lse is fp32 and
 # differs by sums in other orders and the ex2 of the tensor-core
-# kernels. The readings behind these limits are in PERF.md (PR 6).
+# kernels. The readings behind these limits are in PERF.md. dq, rounded
+# to q's type like out, holds dk's limit with its rows' scale floored at
+# 2^-8 of its largest |plain| (FLASH_ROW_FLOOR): a row of dq sums
+# dS_ij k_j with sum_j dS_ij = 0, and query 0 of a causal dq sees one
+# key, whose dS = dP - delta is 0 in exact arithmetic, so both versions
+# leave fp32 rounding noise there (~1e-7) that no row scale can hold. At
+# phase 7's shapes only query 0's rows of the plain dq fall below the
+# floor; the next smallest rows are 2^-8 to 2^-5 of the largest and are
+# held by their own scale.
 FLASH_ROW_TOL = {
-    torch.bfloat16: {"out": 2**-6, "lse": 1e-5, "dk": 2**-6, "dv": 2**-6},
-    torch.float16: {"out": 2**-9, "lse": 1e-5, "dk": 2**-9, "dv": 2**-9}}
+    torch.bfloat16: {"out": 2**-6, "lse": 1e-5, "dq": 2**-6, "dk": 2**-6,
+                     "dv": 2**-6},
+    torch.float16: {"out": 2**-9, "lse": 1e-5, "dq": 2**-9, "dk": 2**-9,
+                    "dv": 2**-9}}
+FLASH_ROW_FLOOR = {"dq": 2**-8}
 
 
-def row_rel_err(got, want, by_element):
+def row_rel_err(got, want, by_element, floor=0.0):
     """The largest error of ``got`` against ``want`` relative to its own
-    row's largest |want| (rows along the last dimension), or element by
+    row's largest |want| (rows along the last dimension), that scale
+    floored at ``floor`` times the largest |want| of all; or element by
     element relative to max(1, |want|)."""
     err, ref = (got.float() - want.float()).abs(), want.float().abs()
     if by_element:
         return float((err / ref.clamp_min(1.0)).max())
-    return float((err.amax(-1) / ref.amax(-1).clamp_min(1e-30)).max())
+    low = max(1e-30, floor * float(ref.max()))
+    return float((err.amax(-1) / ref.amax(-1).clamp_min(low)).max())
 
 
 def flash_case(B, S, H, Hkv, D, dtype, device, seed):
@@ -1349,11 +1438,11 @@ def flash_bounds_ms(q, k, causal):
 def phase_flash(on_card, seed):
     """Each FA2 kernel against its plain version (``flash_cases``): out
     and lse of the forward, then dq, dk and dv, within FLASH_TOL, and
-    the bf16/fp16 out, lse, dk and dv also within FLASH_ROW_TOL, with
-    TF32 off; on the card each case also shows the route its launches
-    took (tensor cores for the bf16/fp16 forward and dK/dV, CUDA cores
-    for fp32 and for dQ). At B=2, S=2048, causal, D=128 two dK/dV
-    launches give bit-identical bf16 gradients (no atomics), and in each
+    the bf16/fp16 out, lse, dq, dk and dv also within FLASH_ROW_TOL,
+    with TF32 off; on the card each case also shows the route its
+    launches took (tensor cores for bf16/fp16, CUDA cores for fp32). At
+    B=2, S=2048, causal, D=128 two dQ and two dK/dV launches give
+    bit-identical bf16 gradients (no atomics), and in each
     type every kernel is timed beside its bound, its plain version and
     SDPA (forward; backward alone, which computes dq, dk and dv
     together; forward + backward)."""
@@ -1365,7 +1454,8 @@ def phase_flash(on_card, seed):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     say("flash", tf32=False, tolerance=repr(FLASH_TOL_WHY),
         row_tolerance=json.dumps({str(t).replace("torch.", ""): v
-                                  for t, v in FLASH_ROW_TOL.items()}))
+                                  for t, v in FLASH_ROW_TOL.items()}),
+        row_scale_floor=json.dumps(FLASH_ROW_FLOOR))
     out = {}
     for dtype, (B, S, H, Hkv, D), causal in flash_cases(on_card):
         name = str(dtype).replace("torch.", "")
@@ -1390,7 +1480,8 @@ def phase_flash(on_card, seed):
             err = float((got.float() - want.float()).abs().max())
             errs[what] = (err, max(1.0, float(want.float().abs().max())))
             if what in row_tol:
-                row_errs[what] = row_rel_err(got, want, what == "lse")
+                row_errs[what] = row_rel_err(got, want, what == "lse",
+                                             FLASH_ROW_FLOOR.get(what, 0.0))
         case = (f"{name} B={B} S={S} H={H} Hkv={Hkv} D={D} "
                 f"causal={causal}")
         say("flash", dtype=name, B=B, S=S, H=H, Hkv=Hkv, D=D, causal=causal,
@@ -1406,7 +1497,7 @@ def phase_flash(on_card, seed):
                   f"row-relative {err} <= {row_tol[what]}")
         if on_card:
             way = fa.route("flash_fwd", dtype)
-            want = {f"flash_fwd/{way}": 1, "flash_dq/cuda_core": 1,
+            want = {f"flash_fwd/{way}": 1, f"flash_dq/{way}": 1,
                     f"flash_dkv/{way}": 1}
             check(routes == want, f"flash routes {routes} == {want}")
         if not (on_card and S == 2048 and causal):
@@ -1416,9 +1507,14 @@ def phase_flash(on_card, seed):
             runs = [fa._dkv_kernel(q, k, v, do, lse, delta, True)
                     for _ in range(2)]
             same = all(torch.equal(a, b) for a, b in zip(*runs))
+            same_dq = torch.equal(fa._dq_kernel(q, k, v, do, lse, delta, True),
+                                  fa._dq_kernel(q, k, v, do, lse, delta, True))
             say("flash", name="flash_dkv", dtype=name, S=S,
                 two_launches_bit_identical=same)
+            say("flash", name="flash_dq", dtype=name, S=S,
+                two_launches_bit_identical=same_dq)
             check(same, "two flash_dkv launches give bit-identical dk, dv")
+            check(same_dq, "two flash_dq launches give bit-identical dq")
         calls = {
             "flash_fwd": lambda: fa._fwd(q, k, v, True),
             "flash_dq": lambda: fa._dq_kernel(q, k, v, do, lse, delta, True),
@@ -1580,8 +1676,8 @@ def phase_train(on_card, args):
     10 timed steps with the launch counts zeroed just before: flash_fwd
     launched 2 x layers x steps times (core_attn recomputes the
     attention forward in the backward), flash_dq and flash_dkv layers x
-    steps times, the forward and dK/dV on the tensor-core route and dQ
-    on the CUDA cores. The loss is finite and falls. The CPU rehearsal runs
+    steps times, all three on the tensor-core route. The loss is finite
+    and falls. The CPU rehearsal runs
     the debug preset's widths (batch 2 x 64, 3 steps)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1665,7 +1761,7 @@ def phase_train(on_card, args):
                 "flash_dkv": L * iters}
         check(launches == want, f"training launches {launches} == {want}")
         want = {"flash_fwd/tensor_core": 2 * L * iters,
-                "flash_dq/cuda_core": L * iters,
+                "flash_dq/tensor_core": L * iters,
                 "flash_dkv/tensor_core": L * iters}
         check(routes == want, f"training routes {routes} == {want}")
     if args.profile:
@@ -1729,12 +1825,16 @@ def profile_train_step(step, batch, on_card):
     kernels, dev_us, n = device_kernels(prof)
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
+    by_kernel = {n: round(sum(e.self_device_time_total for e in kernels
+                              if f"{n}_" in e.key) / 1e3, 3)
+                 for n in ("flash_fwd", "flash_dq", "flash_dkv")}
     gemm_us = sum(e.self_device_time_total for e in kernels
                   if "nvjet" in e.key or "gemm" in e.key.lower())
     say("profile", what="train_step", wall_ms=round(wall * 1e3, 3),
         device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
         device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
         flash_kernels_ms=round(flash_us / 1e3, 3),
+        flash_ms_by_kernel=json.dumps(by_kernel).replace(" ", ""),
         gemm_kernels_ms=round(gemm_us / 1e3, 3),
         other_kernels_ms=round((dev_us - flash_us - gemm_us) / 1e3, 3))
     for e in kernels[:12]:
@@ -1798,8 +1898,10 @@ def main():
             for entry, regs, spills in ptxas_entries(_build.build_log(name)):
                 print(f"  ptxas {name}: {entry} registers={regs} "
                       f"spill_bytes={spills}")
-                check(not ("_mma_kernel" in entry and spills),
-                      f"no spills in the tensor-core kernel {entry}")
+                check(not (("_mma_kernel" in entry or "mixed_paged" in entry)
+                           and spills),
+                      f"no spills in the tensor-core or mixed kernel "
+                      f"{entry}")
     kernels = phase_kernels(on_card, args.seed)
     kernels_int8 = phase_kernels_int8(on_card, args.seed)
     kernels_mixed = phase_kernels_mixed(on_card, args.seed)

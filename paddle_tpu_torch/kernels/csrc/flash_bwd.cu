@@ -3,8 +3,8 @@
 //
 // Replaces the TPU backward kernels of paddle_tpu/kernels/flash_attention.py,
 // launched by `_flash_bwd_impl`:
-//   flash_dq_kernel       <- `_dq_kernel`, `_dq_kernel_grouped`,
-//                            `_dq_kernel_stream`, `_dq_kernel_stream_grouped`
+//   flash_dq_mma_kernel,  <- `_dq_kernel`, `_dq_kernel_grouped`,
+//   flash_dq_kernel          `_dq_kernel_stream`, `_dq_kernel_stream_grouped`
 //   flash_dkv_mma_kernel, <- `_dkv_kernel`, `_dkv_kernel_grouped`,
 //   flash_dkv_kernel         `_dkv_kernel_stream`, `_dkv_kernel_stream_grouped`
 // (each family is one function in four TPU memory layouts).
@@ -26,9 +26,10 @@
 //          dS = P (dP - delta) rounded to q's type;  dk = D^-1/2 dS^T . q
 // with every sum in fp32. dk is scaled by D^-1/2 once, at the end, as
 // the plain version does; the TPU kernel scales each tile's product, a
-// difference of fp32 rounding only. The tensor-core kernel takes P as
-// 2^((s D^-1/2 - lse) log2 e), one FFMA and one multiply before the
-// SFU's ex2: a few ulps from exp before P's rounding.
+// difference of fp32 rounding only; so is dq, likewise. The tensor-core
+// kernels take P as 2^((s D^-1/2 - lse) log2 e), with the scale and
+// log2 e folded into one FFMA (dK/dV: one FFMA and one multiply) before
+// the SFU's ex2: a few ulps from exp before P's rounding.
 //
 // What bounds them: operations (6 and 8 S^2 D flops per (b, h), half
 // with the causal mask, on O(S D) elements moved).
@@ -60,11 +61,30 @@
 // from shared memory each time rather than living in registers. Rows of
 // D + 8 elements keep ldmatrix free of bank conflicts.
 //
-// flash_dkv (fp32) and flash_dq (every type): fp32 FMAs on the CUDA
-// cores, with tiles staged once in shared memory as fp32 and reused from
-// there, and strides of D + 1 and 32 + 1 floats against bank conflicts.
+// flash_dq_mma (bf16, fp16): the dK/dV design with the query rows as
+// the mma's M dimension. Grid (B * H, ceil(S / 64)), 128 threads, the
+// query tiles heaviest first (blockIdx.y = 0 is the last tile, whose
+// causal walk is longest). Each warp owns 16 query rows: its q and dout
+// fragments are loaded by ldmatrix once and stay in registers, with its
+// rows' lse and delta, for the whole walk; the 64-key K and V tiles of kv
+// head h / G arrive through a 2-stage cp.async ring, and the causal walk
+// stops at the tile's diagonal. Per 16 keys and warp:
+//   S = q . K^T, dP = dout . V^T      (K, V by ldmatrix)
+//   P = 2^(S D^-1/2 log2 e - lse log2 e), masked (diagonal and ragged
+//       tiles only)
+//   dS = P (dP - delta), rounded to k's type in registers as the A
+//        operand of
+//   dQ += dS . K                      (K by ldmatrix.trans)
+// The bound on it is registers: the dQ accumulator is 16 x D fp32 a warp
+// (64 a thread at D = 128) beside q's and dout's fragments (32 each), so
+// S and dP are formed 16 keys at a time and spent at once. dq is scaled
+// by D^-1/2 once, at the end.
 //
-// dQ: grid (ceil(S / 64), B * H), 128 threads. A block holds a 64-row
+// flash_dkv and flash_dq (fp32): fp32 FMAs on the CUDA cores, with tiles
+// staged once in shared memory as fp32 and reused from there, and
+// strides of D + 1 and 32 + 1 floats against bank conflicts.
+//
+// dQ (fp32): grid (ceil(S / 64), B * H), 128 threads. A block holds a 64-row
 // tile of q and dout with their lse and delta, and walks the 32-key
 // tiles of the kv head h / G. Thread t owns rows ty + 16 i (ty = t / 8,
 // i < 4), keys tx + 8 j (tx = t % 8, j < 4) of the score tile and
@@ -548,6 +568,144 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------ dQ, tensor cores ---
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // q, dout; 2 stages of (K, V); all in the input type
+  return 2 * size_t(6 * kTcBK) * tc_ld<D>();
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int S, int H, int Hkv, int causal, float scale) {
+  constexpr int LD = tc_ld<D>();
+  constexpr int KD = D / 16;     // k-steps over D
+  constexpr int ND = D / 8;      // n-tiles over D
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  T* Qs = reinterpret_cast<T*>(smem_tc);     // [kTcBK][LD]
+  T* dOs = Qs + kTcBK * LD;                  // [kTcBK][LD]
+  T* Ks = dOs + kTcBK * LD;                  // [2][kTcBK][LD]
+  T* Vs = Ks + 2 * kTcBK * LD;               // [2][kTcBK][LD]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBK;   // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * warp + g;         // and row0 + 8
+
+  int n_kt = (S + kTcBK - 1) / kTcBK;
+  if (causal) n_kt = min(n_kt, (q0 + kTcBK - 1) / kTcBK + 1);
+
+  cp_tile<T, kTcBK, D>(Qs, q, b, h, H, S, q0);
+  cp_tile<T, kTcBK, D>(dOs, dout, b, h, H, S, q0);
+  cp_tile<T, kTcBK, D>(Ks, k, b, hk, Hkv, S, 0);
+  cp_tile<T, kTcBK, D>(Vs, v, b, hk, Hkv, S, 0);
+  cp_async_commit();
+
+  // each lane's two rows: lse times log2 e, and delta
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    lse2[r] = qi < S ? lse[int64_t(bh) * S + qi] * kLog2e : 0.f;
+    del[r] = qi < S ? delta[int64_t(bh) * S + qi] : 0.f;
+  }
+  uint32_t qf[KD][4], df[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float c = scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; every warp is done with kt - 1
+    if (kt + 1 < n_kt) {
+      const int nxt = (kt + 1) & 1;
+      cp_tile<T, kTcBK, D>(Ks + nxt * kTcBK * LD, k, b, hk, Hkv, S,
+                           (kt + 1) * kTcBK);
+      cp_tile<T, kTcBK, D>(Vs + nxt * kTcBK * LD, v, b, hk, Hkv, S,
+                           (kt + 1) * kTcBK);
+    }
+    cp_async_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        ldsm_x4(qf[kk], frag_a<LD>(Qs, 16 * warp, 16 * kk, lane));
+        ldsm_x4(df[kk], frag_a<LD>(dOs, 16 * warp, 16 * kk, lane));
+      }
+    }
+    const T* Kt = Ks + (kt & 1) * kTcBK * LD;
+    const T* Vt = Vs + (kt & 1) * kTcBK * LD;
+    const int k0 = kt * kTcBK;
+    // masks only the diagonal tile and a ragged last tile
+    const bool edge =
+        k0 + kTcBK > S || (causal && k0 + kTcBK - 1 > q0 + 16 * warp);
+
+    // 16 keys at a time: S and dP for them, dS, then dQ += dS . K
+#pragma unroll
+    for (int grp = 0; grp < kTcBK / 16; ++grp) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, frag_bt<LD>(Kt, 16 * grp, 16 * kk, lane));
+        mma16816<T>(s[0], qf[kk], kb[0], kb[1]);
+        mma16816<T>(s[1], qf[kk], kb[2], kb[3]);
+        ldsm_x4(vb, frag_bt<LD>(Vt, 16 * grp, 16 * kk, lane));
+        mma16816<T>(dp[0], df[kk], vb[0], vb[1]);
+        mma16816<T>(dp[1], df[kk], vb[2], vb[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // exp(s D^-1/2 - lse) as 2^(s D^-1/2 log2 e - lse log2 e); a
+          // masked key's weight is exactly 0, as exp(-1e30 - lse) is
+          float p = exp2_approx(fmaf(s[n][e], c, -lse2[e >> 1]));
+          if (edge) {
+            const int kj = k0 + 16 * grp + 8 * n + 2 * t + (e & 1);
+            const int qi = row0 + 8 * (e >> 1);
+            if (kj >= S || qi >= S || (causal && kj > qi)) p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - del[e >> 1]);
+        }
+      uint32_t da[4];
+      acc_to_a<T>(da, s[0], s[1]);   // dS rounded to k's type
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, frag_b<LD>(Kt, 16 * grp, 8 * n, lane));
+        mma16816<T>(acc[n], da, kb[0], kb[1]);
+        mma16816<T>(acc[n + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= S) continue;
+    T* o = dq + row_offset(b, qi, h, H, S, D) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(o + 8 * n) =
+          pack2<T>(scale * acc[n][2 * r], scale * acc[n][2 * r + 1]);
+  }
+}
+
 // ------------------------------------------------------------ launch ---
 
 template <typename T, int D>
@@ -607,6 +765,34 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return int(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_dq_mma(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, int B, int S, int H, int Hkv, int causal,
+                  float scale, cudaStream_t stream) {
+  const int64_t gx = int64_t(B) * H, gy = (S + kTcBK - 1) / kTcBK;
+  if (!grid_fits(gx, gy)) return -1;
+  const size_t smem = dq_mma_smem_bytes<D>();
+  auto kernel = flash_dq_mma_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), S, H, Hkv, causal, scale);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int dq_mma_typed(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int B, int S, int H, int Hkv, int D, int causal,
+                 float scale, cudaStream_t stream) {
+  FLASH_DISPATCH_D(D, launch_dq_mma, T, q, k, v, dout, lse, delta, dq, B, S,
+                   H, Hkv, causal, scale, stream)
+}
+
 template <typename T>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, void* dq, int B, int S,
@@ -632,18 +818,30 @@ bool bad_shape(int B, int S, int H, int Hkv) {
 }  // namespace
 
 // Each returns 0 on success, -1 for arguments the kernel does not take
-// (flash_dkv takes fp32 alone, flash_dkv_mma bf16 and fp16 alone), else
-// the cudaError_t of the launch.
+// (flash_dq and flash_dkv take fp32 alone, flash_dq_mma and
+// flash_dkv_mma bf16 and fp16 alone), else the cudaError_t of the
+// launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, int B, int S, int H,
                         int Hkv, int D, int dtype, int causal, float scale,
                         void* stream) {
+  if (bad_shape(B, S, H, Hkv) || dtype != 0) return -1;
+  if (B == 0 || S == 0) return 0;
+  return dq_typed<float>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D,
+                         causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_dq_mma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int B, int S,
+                            int H, int Hkv, int D, int dtype, int causal,
+                            float scale, void* stream) {
   if (bad_shape(B, S, H, Hkv)) return -1;
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_T(dtype, dq_typed, q, k, v, dout, lse, delta, dq, B, S, H,
-                   Hkv, D, causal, scale, s)
+  FLASH_DISPATCH_T16(dtype, dq_mma_typed, q, k, v, dout, lse, delta, dq, B,
+                     S, H, Hkv, D, causal, scale, s)
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,

@@ -23,13 +23,12 @@ h // (H / Hkv)); the log-sum-exp of each row comes as float32
 
 Routes on CUDA, a fixed function of the input type (:func:`route`):
 bf16 and fp16 take the tensor-core kernels (``flash_fwd_mma``,
-``flash_dkv_mma``: ``mma.sync`` on tiles in the input type, and
-exponentials as 2^x with the scale and log2 e folded in, a few ulps from
-the plain versions' exp before P's rounding), fp32 takes
-the CUDA-core kernels (``flash_fwd``, ``flash_dkv``: fp32 FMAs, since
-the tensor cores have no full-fp32 product). ``flash_dq`` runs on the
-CUDA cores for every type. A failed launch raises; neither route gives
-way to the other or to the plain version.
+``flash_dq_mma``, ``flash_dkv_mma``: ``mma.sync`` on tiles in the input
+type, and exponentials as 2^x with the scale and log2 e folded in, a few
+ulps from the plain versions' exp before P's rounding), fp32 takes the
+CUDA-core kernels (``flash_fwd``, ``flash_dq``, ``flash_dkv``: fp32
+FMAs, since the tensor cores have no full-fp32 product). A failed launch
+raises; neither route gives way to the other or to the plain version.
 """
 
 from __future__ import annotations
@@ -61,6 +60,7 @@ route_counts: collections.Counter = collections.Counter()
 #: the C entry of each (kernel, route)
 _ENTRY = {("flash_fwd", "tensor_core"): "flash_fwd_mma",
           ("flash_fwd", "cuda_core"): "flash_fwd",
+          ("flash_dq", "tensor_core"): "flash_dq_mma",
           ("flash_dq", "cuda_core"): "flash_dq",
           ("flash_dkv", "tensor_core"): "flash_dkv_mma",
           ("flash_dkv", "cuda_core"): "flash_dkv"}
@@ -267,10 +267,10 @@ def sdpa_reference_with_lse(q, k, v, causal=False):
 # -- kernels ------------------------------------------------------------------
 
 def route(name, dtype):
-    """The route of kernel ``name`` for CUDA inputs of ``dtype``:
-    "tensor_core" for the bf16/fp16 forward and dK/dV, else
-    "cuda_core"."""
-    if name != "flash_dq" and dtype in (torch.bfloat16, torch.float16):
+    """The route of kernel ``name`` (``flash_fwd``, ``flash_dq`` or
+    ``flash_dkv``) for CUDA inputs of ``dtype``: "tensor_core" for bf16
+    and fp16, else "cuda_core"."""
+    if dtype in (torch.bfloat16, torch.float16):
         return "tensor_core"
     return "cuda_core"
 
@@ -288,7 +288,7 @@ def _bind_fwd(lib):
 
 
 def _bind_bwd(lib):
-    _bind(lib, ("flash_dq",), 7)
+    _bind(lib, ("flash_dq", "flash_dq_mma"), 7)
     _bind(lib, ("flash_dkv", "flash_dkv_mma"), 8)
 
 

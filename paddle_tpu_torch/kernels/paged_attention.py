@@ -32,7 +32,12 @@ before the launch). Query i of row b sits at ``kv_lens[b] - q_lens[b]
 :func:`mixed_paged_attention` launches ``csrc/mixed_paged.cu`` for CUDA
 tensors with fp pools and runs :func:`mixed_attn_reference` otherwise
 (int8 pools take that gather path on every device, as the reference's
-do).
+do). The CUDA side is two launches: split-KV partials over
+:data:`MIXED_SPLIT_KEYS`-key splits into a workspace, then their merge;
+:func:`mixed_attn_partials` and :func:`merge_softmax_partials` are the
+plain versions of the two passes. bf16 and fp16 take the tensor-core
+kernel, fp32 the CUDA-core one (:func:`mixed_route`), counted in
+:data:`route_counts`.
 """
 
 from __future__ import annotations
@@ -42,12 +47,14 @@ import ctypes
 
 from . import _build
 
-__all__ = ["NULL_PAGE", "KV_SCALE_EPS", "launch_counts",
+__all__ = ["NULL_PAGE", "KV_SCALE_EPS", "launch_counts", "route_counts",
            "paged_attn_reference", "paged_attn_reference_int8",
            "int8_block_update", "gather_pages_dequant",
            "paged_decode_attention", "check_kernel_args",
-           "mixed_attn_reference", "mixed_paged_attention",
-           "verify_chunk_scores", "check_mixed_args",
+           "mixed_attn_reference", "mixed_attn_partials",
+           "merge_softmax_partials", "mixed_paged_attention",
+           "mixed_route", "mixed_splits", "mixed_workspace_floats",
+           "verify_chunk_scores", "check_mixed_args", "MIXED_SPLIT_KEYS",
            "KERNEL_HEAD_DIMS", "KERNEL_BLOCK_SIZES", "KERNEL_MAX_GROUP"]
 
 #: page id 0 is never allocated: padded block-table entries and inactive
@@ -63,9 +70,17 @@ KV_SCALE_EPS = 1e-8
 #: that wants to see what a run launched clears it first.
 launch_counts: collections.Counter = collections.Counter()
 
+#: the mixed launches by ``"mixed_paged/<route>"`` (``tensor_core`` for
+#: bf16 and fp16, ``cuda_core`` for fp32), kept beside ``launch_counts``
+route_counts: collections.Counter = collections.Counter()
+
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BLOCK_SIZES = (8, 16, 32)
 KERNEL_MAX_GROUP = 8
+
+#: keys of one split of the mixed kernel (``kSplit`` in
+#: ``csrc/mixed_paged.cu``)
+MIXED_SPLIT_KEYS = 256
 
 _KERNEL = "paged_decode"
 _KERNEL_INT8 = "paged_decode_int8"
@@ -328,6 +343,80 @@ def mixed_attn_reference(q, k_pages, v_pages, block_table, kv_lens, q_lens,
     return torch.einsum("btngs,bsnd->btngd", p, cv.float())
 
 
+def mixed_attn_partials(q, k_pages, v_pages, block_table, kv_lens, q_lens,
+                        split_keys=MIXED_SPLIT_KEYS):
+    """The plain version of the mixed kernel's first pass: the keys of
+    the block table's width are cut into splits of ``split_keys``, and
+    each split gives every query the unnormalised online-softmax state
+    of its visible keys there, scores multiplied by 1/sqrt(hd) as in the
+    kernel: (m, l) [n_splits, B, T, kvh, G] and acc [n_splits, B, T,
+    kvh, G, hd], fp32. A split with no key visible to a query gives it
+    m = -1e30, l = 0, acc = 0. :func:`merge_softmax_partials` over
+    dim 0 finishes :func:`mixed_attn_reference`'s function."""
+    import torch
+    B, T, kvh, G, hd = q.shape
+    mb, bs = block_table.shape[1], k_pages.shape[1]
+    idx = block_table.reshape(-1).long()
+    ck = k_pages[idx].reshape(B, mb * bs, kvh, hd).float()
+    cv = v_pages[idx].reshape(B, mb * bs, kvh, hd).float()
+    dev = q.device
+    kv_lens, q_lens = kv_lens.to(dev).long(), q_lens.to(dev).long()
+    pos = (kv_lens[:, None] - q_lens[:, None]
+           + torch.arange(T, device=dev)[None, :])          # [B, T]
+    qf = q.float()
+    ms, ls, accs = [], [], []
+    for k0 in range(0, mb * bs, split_keys):
+        kb, vb = ck[:, k0:k0 + split_keys], cv[:, k0:k0 + split_keys]
+        j = torch.arange(k0, k0 + kb.shape[1], device=dev)[None, None, :]
+        ok = ((j <= pos[:, :, None]) & (j < kv_lens[:, None, None])
+              )[:, :, None, None, :]
+        s = torch.einsum("btngd,bsnd->btngs", qf, kb) * (1.0 / hd ** 0.5)
+        s = torch.where(ok, s, _NEG_INF)
+        m = s.amax(-1)
+        p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("btngs,bsnd->btngd", p, vb))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def merge_softmax_partials(m, l, acc, dim=0):
+    """Combine online-softmax partials along ``dim`` (the splits of a
+    row's keys, or shards of a mesh axis): m, l [...], acc [..., hd] ->
+    [..., hd]. The math of the reference's ``merge_softmax_partials``:
+    M = max m, w = exp(m - M), L = sum l w, out = sum acc w / max(L,
+    1e-30), so a partial with m = -1e30, l = 0, acc = 0 adds nothing and
+    a query with no key anywhere gets exact zeros. The plain version of
+    the mixed kernel's second pass."""
+    import torch
+    M = m.amax(dim, keepdim=True)
+    w = torch.exp(m - M)
+    L = (l * w).sum(dim)
+    out = (acc * w[..., None]).sum(dim)
+    return out / torch.clamp(L, min=1e-30)[..., None]
+
+
+def mixed_route(dtype):
+    """The mixed kernel's route for CUDA inputs of ``dtype``:
+    "tensor_core" for bf16 and fp16, else "cuda_core"."""
+    import torch
+    if dtype in (torch.bfloat16, torch.float16):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def mixed_splits(max_blocks, bs):
+    """Splits of the mixed kernel's first pass: ceil(max_blocks * bs /
+    MIXED_SPLIT_KEYS), from the block table's width alone."""
+    return -(-max_blocks * bs // MIXED_SPLIT_KEYS)
+
+
+def mixed_workspace_floats(B, T, kvh, G, hd, max_blocks, bs):
+    """fp32 elements of the mixed kernel's workspace: each split's acc
+    [B, kvh, T * G, hd], then each split's (m, l)."""
+    return mixed_splits(max_blocks, bs) * B * kvh * T * G * (hd + 2)
+
+
 def check_mixed_args(q, k_pages, v_pages, block_table, kv_lens, q_lens):
     """Raise ``ValueError`` unless the mixed CUDA kernel takes these
     arguments: q [B, T, kvh, G, hd] in bf16, fp16 or fp32, pools
@@ -379,28 +468,40 @@ def check_mixed_args(q, k_pages, v_pages, block_table, kv_lens, q_lens):
 
 def _bind_mixed(lib):
     fn = lib.mixed_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
+def _call_mixed(fn, args, device):
+    """``fn(*args, stream)`` with ``device`` current and its current
+    stream: the C entry's call."""
+    import torch
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def _launch_mixed(q, k_pages, v_pages, block_table, kv_lens, q_lens):
-    """Launch ``csrc/mixed_paged.cu`` on the current stream; count it."""
+    """Launch ``csrc/mixed_paged.cu`` (split pass and merge) on the
+    current stream, with its workspace from torch's allocator on that
+    stream; count it once, by kernel and by route."""
     import torch
     check_mixed_args(q, k_pages, v_pages, block_table, kv_lens, q_lens)
     B, T, kvh, G, hd = q.shape
+    bs, mb = k_pages.shape[1], block_table.shape[1]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    n_ws = mixed_workspace_floats(B, T, kvh, G, hd, mb, bs)
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
     fn = _build.load(_KERNEL_MIXED, _bind_mixed).mixed_paged_attention
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(a.data_ptr() for a in (q, k_pages, v_pages, block_table,
-                                           kv_lens, q_lens, out)),
-                 B, T, kvh, G, hd, k_pages.shape[1], block_table.shape[1],
-                 _build.DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5), stream)
+    err = _call_mixed(fn, (*(a.data_ptr() for a in (
+        q, k_pages, v_pages, block_table, kv_lens, q_lens, out, ws)),
+        n_ws, B, T, kvh, G, hd, bs, mb, _build.DTYPE_CODE[str(q.dtype)],
+        1.0 / (hd ** 0.5)), q.device)
     if err != 0:
         why = "unsupported arguments" if err < 0 else "cudaError_t"
         raise RuntimeError(f"{_KERNEL_MIXED} launch failed: {why} {err}")
     launch_counts[_KERNEL_MIXED] += 1
+    route_counts[f"{_KERNEL_MIXED}/{mixed_route(q.dtype)}"] += 1
     return out
 
 

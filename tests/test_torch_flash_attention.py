@@ -158,16 +158,15 @@ def test_wrapper_checks_and_dispatch(m):
     assert not fa.launch_counts         # the CPU runs no kernel
 
 
-@pytest.mark.parametrize("dtype,code,fwd,dkv", [
-    ("bfloat16", 2, "flash_fwd_mma", "flash_dkv_mma"),
-    ("float16", 1, "flash_fwd_mma", "flash_dkv_mma"),
-    ("float32", 0, "flash_fwd", "flash_dkv")])
-def test_cuda_route_by_dtype(m, monkeypatch, dtype, code, fwd, dkv):
+@pytest.mark.parametrize("dtype,code,fwd,dq,dkv", [
+    ("bfloat16", 2, "flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"),
+    ("float16", 1, "flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"),
+    ("float32", 0, "flash_fwd", "flash_dq", "flash_dkv")])
+def test_cuda_route_by_dtype(m, monkeypatch, dtype, code, fwd, dq, dkv):
     """The C entry each kernel calls on CUDA: bf16 and fp16 take the
-    tensor-core forward and dK/dV, fp32 the CUDA-core ones, and dQ the
-    CUDA cores for every type. The library and the C call are stubbed,
-    so nothing is built or launched; the counts record kernel and
-    route."""
+    tensor-core forward, dQ and dK/dV, fp32 the CUDA-core ones. The
+    library and the C call are stubbed, so nothing is built or launched;
+    the counts record kernel and route."""
     torch, fa = m.torch, m.fa
     lib = types.SimpleNamespace(**{n: n for n in fa._ENTRY.values()})
     calls = []
@@ -181,7 +180,7 @@ def test_cuda_route_by_dtype(m, monkeypatch, dtype, code, fwd, dkv):
     fa.route_counts.clear()
     out, lse = fa._fwd_kernel(q, kv, kv, True)
     fa._bwd_kernels(q, kv, kv, out, lse, q, True, None)
-    assert [fn for fn, _ in calls] == [fwd, "flash_dq", dkv]
+    assert [fn for fn, _ in calls] == [fwd, dq, dkv]
     for (_, args), n_ptrs in zip(calls, (5, 7, 8)):
         assert args[n_ptrs:] == (2, 8, 4, 2, 32, code, 1, 1 / 32 ** 0.5)
     way = fa.route("flash_fwd", dt)
@@ -189,7 +188,7 @@ def test_cuda_route_by_dtype(m, monkeypatch, dtype, code, fwd, dkv):
     assert fa.launch_counts == {"flash_fwd": 1, "flash_dq": 1,
                                 "flash_dkv": 1}
     assert fa.route_counts == {f"flash_fwd/{way}": 1,
-                               "flash_dq/cuda_core": 1,
+                               f"flash_dq/{way}": 1,
                                f"flash_dkv/{way}": 1}
     # the tensor-core kernels copy 16-byte chunks: a misaligned view
     # raises there and passes on the CUDA-core route
@@ -212,6 +211,7 @@ def test_c_interfaces(m, monkeypatch):
     for src, fn, n in (("flash_fwd", "flash_fwd", 14),
                        ("flash_fwd", "flash_fwd_mma", 14),
                        ("flash_bwd", "flash_dq", 16),
+                       ("flash_bwd", "flash_dq_mma", 16),
                        ("flash_bwd", "flash_dkv", 17),
                        ("flash_bwd", "flash_dkv_mma", 17)):
         text = (_build.CSRC / f"{src}.cu").read_text()

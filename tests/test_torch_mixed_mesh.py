@@ -389,6 +389,69 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_nothing(m):
         m.pa.mixed_paged_attention(*(a.to("meta") for a in args))
 
 
+@pytest.mark.parametrize("split_keys", [8, 16, 32])
+def test_split_then_merge_matches_references(m, split_keys):
+    """The plain versions of the kernel's two passes: partials over
+    splits of ``split_keys`` keys, then merge_softmax_partials, against
+    mixed_attn_reference and the reference's _mixed_attn_reference.
+    Rows: kv_len 0 (exact zeros), one decode token over 5 keys (shorter
+    than a split; the later splits hold no visible key and give
+    m = -1e30, l = 0, acc = 0), a 12-token prefill window at 28..39
+    that crosses the split boundary at 32, and a 3-token window."""
+    arrays = _mixed_case(seed=41, T=16, kv_lens=(0, 5, 40, 45),
+                         q_lens=(0, 1, 12, 3), max_blocks=6)
+    t = _t(m, *arrays)
+    parts = m.pa.mixed_attn_partials(*t, split_keys=split_keys)
+    n_splits = -(-48 // split_keys)
+    assert [tuple(x.shape[:2]) for x in parts] == [(n_splits, 4)] * 3
+    ml, ll, acc = (x[1:, 1, 0] for x in parts)      # row 1, splits >= 1
+    assert bool((ml == -1e30).all() and (ll == 0).all()
+                and (acc == 0).all())
+    got = m.pa.merge_softmax_partials(*parts, dim=0).numpy()
+    _valid_close(got, m.pa.mixed_attn_reference(*t).numpy(), arrays[5])
+    want = np.asarray(m.jpa._mixed_attn_reference(*_j(m, *arrays)))
+    _valid_close(got, want, arrays[5])
+    np.testing.assert_array_equal(got[0], 0.0)
+    assert np.isfinite(got).all()
+
+
+def test_cuda_launch_counts_by_route_with_its_workspace(m, monkeypatch):
+    """The CUDA wrapper with the library and the C call stubbed (nothing
+    is built or launched): each call passes a workspace of
+    mixed_workspace_floats elements, whose split count comes from the
+    table's width alone, and counts one launch under its kernel and its
+    route (tensor cores for bf16/fp16, CUDA cores for fp32)."""
+    torch, pa = m.torch, m.pa
+    calls = []
+    monkeypatch.setattr(pa._build, "load", lambda name, bind:
+                        types.SimpleNamespace(mixed_paged_attention="fn"))
+    monkeypatch.setattr(pa, "_call_mixed", lambda fn, args, device:
+                        calls.append(args) or 0)
+    pa.launch_counts.clear()
+    pa.route_counts.clear()
+    assert pa.mixed_splits(100, 16) == 7 and pa.mixed_splits(1, 8) == 1
+    i32 = dict(dtype=torch.int32)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        kp = torch.zeros(9, 16, 2, 32, dtype=dt)
+        pa._launch_mixed(torch.zeros(3, 16, 2, 4, 32, dtype=dt), kp,
+                         kp.clone(), torch.zeros(3, 20, **i32),
+                         torch.full((3,), 7, **i32), torch.ones(3, **i32))
+    n_ws = pa.mixed_workspace_floats(3, 16, 2, 4, 32, 20, 16)
+    assert n_ws == 2 * 3 * 2 * 16 * 4 * 34
+    assert [a[8:] for a in calls] == [
+        (n_ws, 3, 16, 2, 4, 32, 16, 20, code, 1 / 32 ** 0.5)
+        for code in (2, 1, 0)]
+    assert pa.launch_counts == {"mixed_paged": 3}
+    assert pa.route_counts == {"mixed_paged/tensor_core": 2,
+                               "mixed_paged/cuda_core": 1}
+    monkeypatch.setattr(pa, "_call_mixed", lambda fn, args, device: -1)
+    with pytest.raises(RuntimeError, match="unsupported arguments"):
+        pa._launch_mixed(torch.zeros(3, 16, 2, 4, 32), kp.float(),
+                         kp.float(), torch.zeros(3, 20, **i32),
+                         torch.zeros(3, **i32), torch.zeros(3, **i32))
+    assert pa.launch_counts == {"mixed_paged": 3}
+
+
 def test_kernel_args_accept_the_engine_shapes(m):
     torch = m.torch
     i32 = dict(dtype=torch.int32)
@@ -442,8 +505,10 @@ def test_c_interface_matches_the_ctypes_binding(m, monkeypatch):
     lib = types.SimpleNamespace(mixed_paged_attention=types.SimpleNamespace())
     m.pa._bind_mixed(lib)
     n_params = len(found.group(1).split(","))
-    assert len(lib.mixed_paged_attention.argtypes) == n_params == 17
+    assert len(lib.mixed_paged_attention.argtypes) == n_params == 19
     assert "sm_90a" in src and "_mixed_kernel" in src
+    split = re.search(r"constexpr int kSplit = (\d+);", src)
+    assert split and int(split.group(1)) == m.pa.MIXED_SPLIT_KEYS
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cmd = _build.nvcc_command("mixed_paged",
                               _build.library_path("mixed_paged"))
