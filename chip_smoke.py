@@ -155,14 +155,62 @@ def cuda_ms(fn, iters=20, flush=None):
     return float(np.median(times))
 
 
+def device_ms(fn, kernel, iters=20, flush=None):
+    """Device-only time of ``fn``: ``iters`` more runs, each after
+    ``flush``, under torch.profiler (apart from the event-timed runs,
+    whose host wall the profiler would stretch). Each kernel whose name
+    holds ``kernel`` gives its device time per launch (its sum over its
+    launch count, which is robust to records the profiler drops); a run
+    launches each once. Returns (their sum in ms, {kernel: ms a launch},
+    launches seen a run)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    seen = 0
+    for e in device_kernels(prof)[0]:
+        if kernel in e.key and e.count:
+            short = re.search(r"(\w+_kernel)", e.key)
+            by_kernel[short.group(1) if short else e.key[:60]] = \
+                e.self_device_time_total / e.count / 1e3
+            seen += e.count
+    return sum(by_kernel.values()), by_kernel, seen / iters
+
+
 # -- phase 2: paged decode kernel against its plain version ------------------
 
-def paged_case(dtype, device, seed):
-    """llama3-8b decode shapes: B=4, kvh=8, G=4, hd=128, bs=16; rows of
-    length 1, 1999, 512 (a multiple of bs) and 0 (an all-NULL table),
-    pages scattered over the pool."""
-    B, kvh, G, hd, bs = 4, 8, 4, 128, 16
-    lens = np.asarray([1, 1999, 512, 0], np.int32)
+PAGED_LENS = (1, 1999, 512, 0)
+# Correctness only, at other widths the kernels take (PAGED_WIDE): rows
+# that end on a split boundary (256 keys = 4 splits of 64), one key past
+# one (321), one past the first (65), and an idle row
+PAGED_WIDE = dict(G=8, hd=64, bs=32)
+PAGED_WIDE_LENS = (256, 321, 65, 0)
+# bf16/fp16 outputs are also held row by row: each (row, kv head, head)
+# vector's largest error over its largest |plain| value. The output is
+# fp32 and not rounded; the kernel widens the same 16-bit inputs exactly
+# and differs from the plain version only in the order of its fp32 sums
+# (64-key splits, then their merge) and in expf: about 1e-6 of a row.
+# The limit, 2^-12, leaves room for a long row's cancellation; a wrong
+# key, page or split moves a row by a large part of itself.
+PAGED_ROW_TOL = 2**-12
+PAGED_ROW_TOL_WHY = ("bf16/fp16: a (row, kv head, head) vector's largest "
+                     "error over its largest |plain|; fp32 output, fp32 "
+                     "sums by 64-key splits and their merge: 2^-12")
+
+
+def paged_case(dtype, device, seed, lens=PAGED_LENS, kvh=8, G=4, hd=128,
+               bs=16):
+    """llama3-8b decode shapes unless told otherwise: B=4, kvh=8, G=4,
+    hd=128, bs=16; rows of length 1, 1999, 512 (a multiple of bs) and 0
+    (an all-NULL table), pages scattered over the pool."""
+    B = len(lens)
+    lens = np.asarray(lens, np.int32)
     mb = -(-int(lens.max()) // bs)
     n_pages = 1 + sum(-(-int(n) // bs) for n in lens) + 64
     rng = np.random.RandomState(seed)
@@ -215,45 +263,114 @@ def sdpa_yardstick(q, kp, vp, table, lens):
     return out.reshape(B, kvh, G, hd)
 
 
+def check_paged_output(got, want, case, tol, row_tol):
+    """The checks every paged-decode output passes: fp32 of q's shape,
+    finite, exact zeros in the length-0 row 3, max-abs within ``tol``
+    and, for 16-bit q (``row_tol``), each (row, kv head, head) vector
+    within ``row_tol`` of its largest |plain|. Returns (max-abs,
+    row-relative error or None)."""
+    check(got.dtype == torch.float32 and got.shape == want.shape,
+          f"{case}: output is fp32 of q's shape")
+    check(bool(torch.isfinite(got).all()), f"{case}: output is finite")
+    check(bool((got[3] == 0).all()), f"{case}: length-0 row gives zeros")
+    err = float((got - want).abs().max())
+    row_err = row_rel_err(got, want, False) if row_tol else None
+    say("kernel", case=case, max_abs_err=err, tol=tol,
+        row_rel_err=row_err, row_tol=row_tol,
+        max_abs_out=float(want.abs().max()))
+    check(err <= tol, f"{case} max-abs {err} <= {tol}")
+    if row_tol:
+        check(row_err <= row_tol, f"{case} row-relative {row_err} <= "
+                                  f"{row_tol}")
+    return err, row_err
+
+
+def check_paged_bits(launch, got, poisoned, case):
+    """On the card: a second launch, and a launch with NaN in the NULL
+    page (``poisoned`` runs it), give the same bits as ``got``."""
+    same_twice = bool(torch.equal(launch(), got))
+    same_nan = bool(torch.equal(poisoned(), got))
+    say("kernel", case=case, two_launches_bit_identical=same_twice,
+        nan_null_page_identical=same_nan)
+    check(same_twice, f"{case}: two launches give the same bits")
+    check(same_nan, f"{case}: NaN in the NULL page changes no output bit")
+
+
+def time_paged(launch, plain, library, want, bound, flush, case):
+    """Event-timed ms of the kernel, its device-only ms (split pass and
+    merge, torch.profiler over 20 more flushed runs), the plain
+    version's and the library route's ms; the kernel must beat its
+    plain version. Returns the kernel's line for the JSON record."""
+    ms = cuda_ms(launch, flush=flush)
+    dev_ms, by_kernel, seen = device_ms(launch, "paged_decode", flush=flush)
+    plain_ms = cuda_ms(plain, flush=flush)
+    lib_ms = cuda_ms(library, flush=flush)
+    lib_err = float((library()[:3].float() - want[:3]).abs().max())
+    bound_ms, bound_by = bound
+    say("kernel", case=case, ms=ms, device_ms=dev_ms,
+        device_ms_by_kernel=json.dumps(by_kernel).replace(" ", ""),
+        profiled_launches_per_call=seen, plain_ms=plain_ms,
+        library_ms=lib_ms, library_max_abs_err=lib_err, bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / ms,
+        device_share_of_bound=bound_ms / dev_ms)
+    check(len(by_kernel) == 2, f"{case}: the profiler saw the split pass "
+                               f"and the merge: {sorted(by_kernel)}")
+    check(ms < plain_ms, f"{case}: {ms} ms faster than its plain "
+                         f"version's {plain_ms} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
 def phase_kernels(on_card, seed):
+    """paged_decode against paged_attn_reference in bf16, fp16 and fp32
+    at llama3-8b decode shapes (timed beside its bound, its plain
+    version and gather + SDPA) and at PAGED_WIDE (checked only): the
+    whole-tensor tolerances, bf16/fp16 row by row (PAGED_ROW_TOL), and
+    on the card two launches and a NaN NULL page bit-identical."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     device = "cuda" if on_card else "cpu"
     out = {}
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
         if on_card else None
     flush = (lambda: flush_buf.zero_()) if on_card else None
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        args = paged_case(dtype, device, seed)
-        got = pa.paged_decode_attention(*args)
-        want = pa.paged_attn_reference(*args)
-        if on_card:
-            torch.cuda.synchronize()
-        check(got.dtype == torch.float32 and got.shape == want.shape,
-              "kernel output is fp32 of q's shape")
-        check(bool(torch.isfinite(got).all()), "kernel output is finite")
-        check(bool((got[3] == 0).all()), "length-0 row gives zeros")
-        err = float((got - want).abs().max())
-        name = str(dtype).replace("torch.", "")
-        say("kernel", name="paged_decode", dtype=name, max_abs_err=err,
-            tol=tol)
-        check(err <= tol, f"paged_decode {name} max-abs {err} <= {tol}")
-        if not on_card:
-            continue
-        ms = cuda_ms(lambda: pa.paged_decode_attention(*args), flush=flush)
-        plain_ms = cuda_ms(lambda: pa.paged_attn_reference(*args),
-                           flush=flush)
-        lib_ms = cuda_ms(lambda: sdpa_yardstick(*args), flush=flush)
-        lib = sdpa_yardstick(*args)
-        lib_err = float((lib[:3].float() - want[:3]).abs().max())
-        bound_ms, bound_by = paged_bound_ms(args[0], args[1], args[3],
-                                            args[4])
-        say("kernel", name="paged_decode", dtype=name, ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, library_max_abs_err=lib_err,
-            bound_ms=bound_ms, bound_by=bound_by,
-            share_of_bound=bound_ms / ms)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms)
+    say("kernel", name="paged_decode", split_keys=pa.DECODE_SPLIT_KEYS,
+        row_tolerance=repr(PAGED_ROW_TOL_WHY))
+    for lens, widths in ((PAGED_LENS, {}), (PAGED_WIDE_LENS, PAGED_WIDE)):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float16, 2e-2),
+                           (torch.float32, 1e-4)):
+            args = paged_case(dtype, device, seed, lens, **widths)
+            got = pa.paged_decode_attention(*args)
+            want = pa.paged_attn_reference(*args)
+            if on_card:
+                torch.cuda.synchronize()
+            B, kvh, G, hd = args[0].shape
+            bs, mb = args[1].shape[1], args[3].shape[1]
+            name = str(dtype).replace("torch.", "")
+            case = (f"paged_decode/{name}/hd{hd}/G{G}/bs{bs}/rows"
+                    f"{'-'.join(map(str, lens))}")
+            say("kernel", case=case, splits=pa.decode_splits(mb, bs),
+                workspace_bytes=4 * pa.decode_workspace_floats(
+                    B, kvh, G, hd, mb, bs))
+            err, _ = check_paged_output(
+                got, want, case, tol,
+                PAGED_ROW_TOL if dtype != torch.float32 else None)
+            if not on_card:
+                continue            # the plain version multiplies 0 x NaN
+            kp_nan, vp_nan = args[1].clone(), args[2].clone()
+            kp_nan[0], vp_nan[0] = float("nan"), float("nan")
+            check_paged_bits(
+                lambda: pa.paged_decode_attention(*args), got,
+                lambda: pa.paged_decode_attention(args[0], kp_nan, vp_nan,
+                                                  *args[3:]), case)
+            del kp_nan, vp_nan
+            if widths:
+                continue            # correctness only
+            out[name] = dict(max_abs_err=err, **time_paged(
+                lambda: pa.paged_decode_attention(*args),
+                lambda: pa.paged_attn_reference(*args),
+                lambda: sdpa_yardstick(*args), want,
+                paged_bound_ms(args[0], args[1], args[3], args[4]), flush,
+                case))
     return out
 
 
@@ -262,14 +379,16 @@ def phase_kernels(on_card, seed):
 INT8_TOL = 1e-4     # f32 output of order 1: summation order and expf
 
 
-def paged_int8_case(dtype, device, seed, bs):
-    """The int8 kernel at llama3-8b decode shapes: B=4, kvh=8, G=4,
-    hd=128; rows of 1, 1999, 512 and 0 keys over scattered pages; codes
-    in [-127, 127] and positive per-(page, head) scales near amax/127 of
-    unit values. Page 0, the NULL page, holds +-127 codes at scale 1e3:
-    a read of it within a row's length would show."""
-    B, kvh, G, hd = 4, 8, 4, 128
-    lens = np.asarray([1, 1999, 512, 0], np.int32)
+def paged_int8_case(dtype, device, seed, bs, lens=PAGED_LENS, kvh=8, G=4,
+                    hd=128):
+    """The int8 kernel at llama3-8b decode shapes unless told otherwise:
+    B=4, kvh=8, G=4, hd=128; rows of 1, 1999, 512 and 0 keys over
+    scattered pages; codes in [-127, 127] and positive per-(page, head)
+    scales near amax/127 of unit values. Page 0, the NULL page, holds
+    +-127 codes at scale 1e3: a read of it within a row's length would
+    show."""
+    B = len(lens)
+    lens = np.asarray(lens, np.int32)
     mb = -(-int(lens.max()) // bs)
     n_pages = 1 + sum(-(-int(n) // bs) for n in lens) + 64
     rng = np.random.RandomState(seed)
@@ -325,53 +444,54 @@ def sdpa_int8_yardstick(q, kp, vp, table, lens, kv_scales):
 
 
 def phase_kernels_int8(on_card, seed):
+    """paged_decode_int8 against paged_attn_reference_int8 with bf16 and
+    fp32 queries at bs 16 and 32 (timed) and at PAGED_WIDE (checked
+    only): INT8_TOL, bf16 row by row (PAGED_ROW_TOL), and on the card
+    two launches and NaN scales of the NULL page bit-identical."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     device = "cuda" if on_card else "cpu"
     out = {}
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=device) \
         if on_card else None
     flush = (lambda: flush_buf.zero_()) if on_card else None
-    for bs in (16, 32):
+    cases = [(bs, PAGED_LENS, {}) for bs in (16, 32)]
+    cases.append((PAGED_WIDE["bs"], PAGED_WIDE_LENS,
+                  dict(G=PAGED_WIDE["G"], hd=PAGED_WIDE["hd"])))
+    for bs, lens, widths in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            args, kv = paged_int8_case(dtype, device, seed, bs)
+            args, kv = paged_int8_case(dtype, device, seed, bs, lens,
+                                       **widths)
             got = pa.paged_decode_attention(*args, kv_scales=kv)
             want = pa.paged_attn_reference_int8(*args, kv)
             if on_card:
                 torch.cuda.synchronize()
-            check(got.dtype == torch.float32 and got.shape == want.shape,
-                  "int8 kernel output is fp32 of q's shape")
-            check(bool(torch.isfinite(got).all()),
-                  "int8 kernel output is finite")
-            check(bool((got[3] == 0).all()), "length-0 row gives zeros")
-            err = float((got - want).abs().max())
+            B, kvh, G, hd = args[0].shape
+            mb = args[3].shape[1]
             name = str(dtype).replace("torch.", "")
-            say("kernel", name="paged_decode_int8", dtype=name, bs=bs,
-                max_abs_err=err, tol=INT8_TOL,
-                max_abs_out=float(want.abs().max()))
-            check(err <= INT8_TOL,
-                  f"paged_decode_int8 {name} bs={bs} max-abs {err} <= "
-                  f"{INT8_TOL}")
+            case = (f"paged_decode_int8/{name}/hd{hd}/G{G}/bs{bs}/rows"
+                    f"{'-'.join(map(str, lens))}")
+            say("kernel", case=case, splits=pa.decode_splits(mb, bs),
+                workspace_bytes=4 * pa.decode_workspace_floats(
+                    B, kvh, G, hd, mb, bs))
+            err, _ = check_paged_output(
+                got, want, case, INT8_TOL,
+                PAGED_ROW_TOL if dtype != torch.float32 else None)
             if not on_card:
                 continue
-            ms = cuda_ms(lambda: pa.paged_decode_attention(*args,
-                                                           kv_scales=kv),
-                         flush=flush)
-            plain_ms = cuda_ms(lambda: pa.paged_attn_reference_int8(*args,
-                                                                    kv),
-                               flush=flush)
-            lib_ms = cuda_ms(lambda: sdpa_int8_yardstick(*args, kv),
-                             flush=flush)
-            lib = sdpa_int8_yardstick(*args, kv)
-            lib_err = float((lib[:3].float() - want[:3]).abs().max())
-            bound_ms, bound_by = paged_int8_bound_ms(args[0], args[3],
-                                                     args[4], bs)
-            say("kernel", name="paged_decode_int8", dtype=name, bs=bs,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_max_abs_err=lib_err, bound_ms=bound_ms,
-                bound_by=bound_by, share_of_bound=bound_ms / ms)
-            out[(name, bs)] = dict(max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, library_ms=lib_ms)
+            ks_nan, vs_nan = kv[0].clone(), kv[1].clone()
+            ks_nan[0], vs_nan[0] = float("nan"), float("nan")
+            check_paged_bits(
+                lambda: pa.paged_decode_attention(*args, kv_scales=kv), got,
+                lambda: pa.paged_decode_attention(
+                    *args, kv_scales=(ks_nan, vs_nan)), case)
+            if widths:
+                continue            # correctness only
+            out[(name, bs)] = dict(max_abs_err=err, **time_paged(
+                lambda: pa.paged_decode_attention(*args, kv_scales=kv),
+                lambda: pa.paged_attn_reference_int8(*args, kv),
+                lambda: sdpa_int8_yardstick(*args, kv), want,
+                paged_int8_bound_ms(args[0], args[3], args[4], bs), flush,
+                case))
     return out
 
 
@@ -931,14 +1051,37 @@ def phase_int8_chunked(on_card, model, args):
     return launches
 
 
+def held_argmaxes(kern, plain, what):
+    """Hold the argmaxes of two steps' logits (rows of [slots, vocab])
+    equal at every slot whose top-2 margin exceeds d, the largest
+    |kernel - plain| logit difference of the step, in both steps: were
+    the argmaxes a and b to differ there, kern[a] - kern[b] and
+    plain[b] - plain[a] would each exceed d, and their sum, which is
+    at most 2d, would exceed 2d. Slots of a smaller margin are counted,
+    not held. Returns (d, slots held, slots)."""
+    d = float((kern - plain).abs().max())
+    top_k, top_p = (x.float().topk(2, dim=-1).values for x in (kern, plain))
+    margin = torch.minimum(top_k[:, 0] - top_k[:, 1],
+                           top_p[:, 0] - top_p[:, 1])
+    held = margin > d
+    same = kern.argmax(-1) == plain.argmax(-1)
+    check(bool(same[held].all()),
+          f"{what}: kernel and plain argmaxes equal at the "
+          f"{int(held.sum())} slots whose top-2 margin exceeds the "
+          f"largest logit difference {d}")
+    return d, int(held.sum()), int(held.numel())
+
+
 def replay_int8_step(cfg, model, snap, on_card):
     """Replay the recorded decode step on copies of its int8 pools and
     scales: every layer's kernel output is held against the plain int8
     version on the same inputs (<= INT8_TOL), and the replay's argmax
     equals the tokens the engine emitted at that step. The argmax of a
-    replay through the plain version alone is printed beside it: bf16
-    rounding flips grow over 32 layers of random weights (see phase
-    4), so it is not held."""
+    replay through the plain version alone is held equal to it at the
+    lanes whose top-2 margin exceeds the largest logit difference
+    between the two replays (held_argmaxes); elsewhere bf16 rounding
+    flips, which grow over 32 layers of random weights (see phase 4),
+    may change it, and it is printed."""
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.models import llama as ll
     device = "cuda" if on_card else "cpu"
@@ -967,12 +1110,14 @@ def replay_int8_step(cfg, model, snap, on_card):
     kern = step(kernel_checked)
     plain_logits = step(plain)
     got = kern.argmax(-1).tolist()
+    d, held, slots = held_argmaxes(kern, plain_logits, "int8 replay")
     say("int8", replay_lanes=lanes,
         replay_lens=[int(snap["lens"][i]) for i in lanes],
         layers_checked=len(errs), attention_max_abs_err=max(errs),
         engine_tokens=snap["emitted"], replay_argmax=got,
         plain_replay_argmax=plain_logits.argmax(-1).tolist(),
-        plain_logits_max_abs_diff=float((kern - plain_logits).abs().max()))
+        plain_logits_max_abs_diff=d,
+        argmax_held_slots=f"{held}/{slots}")
     check(bool(torch.isfinite(kern).all()), "replayed logits are finite")
     check(len(errs) == cfg.num_hidden_layers and max(errs) <= INT8_TOL,
           "every layer's int8 attention agrees with the plain version")
@@ -1159,12 +1304,13 @@ def replay_mixed_step(cfg, model, snap, device):
     In bf16, as the engine ran it: every layer's kernel output is held
     against the plain version on the same inputs (MIXED_TOL), and the
     replay's argmax equals the engine's at every valid slot. The bf16
-    argmaxes of the kernel step and the plain step are counted, not
-    held: the kernel's fp32 sums (an online softmax over 64-key tiles
-    and 256-key splits) differ from the plain version's by a few 1e-6
-    per layer, each such difference can flip a bf16 rounding of the
-    attention output, and the flips grow over 32 layers of random
-    weights (on an H100 with the kernel before its split-KV redesign,
+    argmaxes of the kernel step and the plain step are held equal at
+    the valid slots whose top-2 margin exceeds the step's largest logit
+    difference (held_argmaxes), and counted everywhere: the kernel's
+    fp32 sums (an online softmax over 64-key tiles and 256-key splits)
+    differ from the plain version's by a few 1e-6 per layer, each such
+    difference can flip a bf16 rounding of the attention output, and
+    the flips grow over 32 layers of random weights (on an H100 with the kernel before its split-KV redesign,
     11 of 131 slots, 1 of the 3 emitted ones, with every layer within
     4e-6; printed beside this run's count).
     In fp32, weights and pools upcast, every layer's kernel output is
@@ -1190,17 +1336,21 @@ def replay_mixed_step(cfg, model, snap, device):
 
     def step(weights, dtype, attn):
         with torch.no_grad():
-            return ll.mixed_paged_step(
+            logits = ll.mixed_paged_logits(
                 cfg, *weights, snap["ids"], snap["q_lens"], snap["kv_lens"],
                 snap["tables"], dev_snap["kp"].to(dtype, copy=True),
                 dev_snap["vp"].to(dtype, copy=True), attn=attn)
+        return logits, logits.argmax(-1).to(torch.int32)
 
     w16 = model.weights()
     dt16 = w16[1].dtype
-    k16 = step(w16, dt16, kernel_checked)
+    k16_logits, k16 = step(w16, dt16, kernel_checked)
     errs16, errs[:] = list(errs), []
-    p16 = step(w16, dt16, plain)
+    p16_logits, p16 = step(w16, dt16, plain)
     engine_same = bool((k16 == snap["preds"])[valid].all())
+    d, held, slots = held_argmaxes(k16_logits[valid], p16_logits[valid],
+                                   "bf16 mixed replay")
+    del k16_logits, p16_logits
     say("mesh", replay=str(dt16).replace("torch.", ""),
         q_lens=snap["q_lens"].tolist(), kv_lens=snap["kv_lens"].tolist(),
         layers_checked=len(errs16), attention_max_abs_err=max(errs16),
@@ -1210,7 +1360,8 @@ def replay_mixed_step(cfg, model, snap, device):
         emitted_differing_kernel_vs_plain=int(((k16 != p16) & emitted)
                                               .sum()),
         before_redesign_slots_differing="11/131",
-        before_redesign_emitted_differing="1/3")
+        before_redesign_emitted_differing="1/3", logits_max_abs_diff=d,
+        argmax_held_slots=f"{held}/{slots}")
     check(len(errs16) == cfg.num_hidden_layers
           and max(errs16) <= MIXED_TOL.get(dt16, MIXED_TOL[torch.float32]),
           "every layer's attention agrees with the plain version")
@@ -1218,8 +1369,8 @@ def replay_mixed_step(cfg, model, snap, device):
     st, embed, fnorm, head = w16
     w32 = ({n: w.float() for n, w in st.items()}, embed.float(),
            fnorm.float(), head.float())
-    k32 = step(w32, torch.float32, kernel_checked)
-    p32 = step(w32, torch.float32, plain)
+    k32 = step(w32, torch.float32, kernel_checked)[1]
+    p32 = step(w32, torch.float32, plain)[1]
     same32 = bool((k32 == p32)[valid].all())
     say("mesh", replay="float32", layers_checked=len(errs),
         attention_max_abs_err=max(errs), tol=MIXED_TOL[torch.float32],
@@ -1898,10 +2049,10 @@ def main():
             for entry, regs, spills in ptxas_entries(_build.build_log(name)):
                 print(f"  ptxas {name}: {entry} registers={regs} "
                       f"spill_bytes={spills}")
-                check(not (("_mma_kernel" in entry or "mixed_paged" in entry)
-                           and spills),
-                      f"no spills in the tensor-core or mixed kernel "
-                      f"{entry}")
+                check(not (("_mma_kernel" in entry or "mixed_paged" in entry
+                            or "paged_decode" in entry) and spills),
+                      f"no spills in the tensor-core, mixed or "
+                      f"paged-decode kernel {entry}")
     kernels = phase_kernels(on_card, args.seed)
     kernels_int8 = phase_kernels_int8(on_card, args.seed)
     kernels_mixed = phase_kernels_mixed(on_card, args.seed)

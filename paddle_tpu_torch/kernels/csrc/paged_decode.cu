@@ -12,323 +12,84 @@
 //   seq_lens    [B]               int32 valid keys per row
 //   out         [B, kvh, G, hd]   fp32 = softmax(q.K^T / sqrt(hd)).V over
 //                                 the row's first seq_lens[b] keys
+//   ws          fp32 workspace of the split partials (the wrapper's)
 //
 // What bounds it: bytes. Each key and value is used by the G query heads
 // of its kv head and by nothing else, so a row moves about
 // 2 * len * kvh * hd * 2 bytes in bf16 for 4 * len * kvh * G * hd flops:
-// G/2 flops per byte, far below the card's ~295 flops per byte of bf16.
+// G flops per byte, far below the card's ~295 flops per byte of bf16.
+// The card reaches its memory rate only with many bytes in flight on
+// every SM; one block per (kv head, row) gave 32 blocks for 132 SMs at
+// llama3-8b decode shapes, and the card's time was one SM's serial walk
+// of the longest row.
 //
-// What the design does about it: every key and value of a row is read
-// from device memory exactly once, and every read is coalesced. A thread
-// loads 16 bytes; the hd elements of one key (one kv head of one token,
-// contiguous in the pool) are read by hd*size/16 neighbouring threads, so
-// a warp reads whole 32-byte sectors. Each thread issues the loads of
-// kUnroll keys before it uses any of them, to keep more bytes in flight.
-// Scores, the online softmax (m, l) and the accumulator stay in registers
-// in fp32; nothing but the output is written.
+// What the design does about it (paged_decode.cuh holds the code shared
+// with paged_decode_int8.cu):
 //
-// Layout of the work: one thread block per (kv head, row), holding the G
-// query heads of that kv head. The block walks the row's keys in order;
-// consecutive key slots go to consecutive thread groups, so the warps
-// split the keys of each page. Every thread group keeps its own online
-// softmax; at the end the groups merge within the warp by shuffles and
-// the warps merge through shared memory.
+// 1. Split-KV over separate blocks. A row's keys are cut into splits of
+//    kSplit = 64 keys, one block of 128 threads per (split, kv head,
+//    row); the split count is ceil(max_blocks * bs / 64), from the block
+//    table's width alone, so the wrapper reads nothing back from the
+//    card. 64 keys start every split on a page for bs 8, 16 and 32. Why
+//    64 and not 128: phase 4 of chip_smoke.py (a 40-page table of 16
+//    keys, 4 rows, 8 kv heads) gets 320 blocks instead of 160, and a row
+//    of 2000 keys 256 instead of 128, each walking half as far; a split's
+//    K and V (34 KB in bf16 at hd = 128) still fit five blocks to an SM.
+//    The partial a split leaves (hd + 2 floats a query head) is 6% of the
+//    bf16 bytes it summarises at G = 4, hd = 128. A block whose split
+//    starts at or past its row's length exits at once.
+// 2. A split is one tile: every K and V row of it is copied to shared
+//    memory in one round of 16-byte cp.async (neighbouring threads on
+//    neighbouring chunks of a row, so a warp reads whole sectors), so all
+//    of a block's bytes are in flight at once. Then all G x 64 scores are
+//    formed, and each head takes ONE max and one sum of exp(s - m) for
+//    the split, as the TPU kernel's per-page update does: no per-key
+//    rescale of the accumulator and no per-key shuffle reduction. P.V
+//    follows with each thread on 4 columns of one head. Scores, weights
+//    and sums are fp32; scores are multiplied by hd^-1/2.
+// 3. A deterministic merge: a second launch combines each (row, kv head,
+//    head)'s non-empty splits in split order with
+//    merge_softmax_partials's math (paged_attention.py). No atomics, so
+//    two launches give the same bits. Why a second launch and not the
+//    last block of each (row, kv head) merging in the first: that needs a
+//    zeroed per-(row, kv head) counter that outlives the call and that
+//    two launches on two streams would share; the merge launch costs a
+//    few microseconds (PERF.md, the paged-decode rows, measures it).
 //
-// Keys at or past seq_lens[b] are never read, so a row of length 0 writes
-// zeros, and the NULL page (where inactive rows scatter their K/V) is read
-// only by rows whose length reaches into it. Like the TPU kernel, the
-// empty softmax starts from the finite -1e30 and the output divides by
-// max(l, 1e-30), so no NaN can arise.
+// Keys at or past seq_lens[b] are never read, so a row of length 0 has
+// no split and comes out as exact zeros, and the NULL page (where
+// inactive rows scatter their K/V, racing) reaches no output, NaN
+// included. Like the TPU kernel, masked scores are the finite -1e30 and
+// the output divides by max(l, 1e-30).
 //
 // Taken: hd in {16, 32, 64, 128}, 1 <= G <= 8, any bs (the Python
-// wrapper admits 8, 16 and 32). Split-KV for long rows, TMA and wgmma
-// are later work.
+// wrapper admits 8, 16 and 32). TMA and tensor cores are not used: at
+// G flops per byte the CUDA cores are far from their limit.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_decode.cuh"
 
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 8;
-constexpr int kUnroll = 4;
-constexpr float kNegInf = -1e30f;
-
-// 16 bytes of T, widened to fp32.
-template <typename T>
-struct Pack;
-
-template <>
-struct Pack<float> {
-  static constexpr int kVec = 4;
-  __device__ __forceinline__ static void widen(const uint4& r, float* f) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-};
-
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ __forceinline__ static void widen(const uint4& r, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-template <>
-struct Pack<__half> {
-  static constexpr int kVec = 8;
-  __device__ __forceinline__ static void widen(const uint4& r, float* f) {
-    const __half2* h = reinterpret_cast<const __half2*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 t = __half22float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp,
-                    const int* __restrict__ block_table,
-                    const int* __restrict__ seq_lens,
-                    float* __restrict__ out, int kvh, int G, int bs,
-                    int max_blocks, float scale) {
-  constexpr int kVec = Pack<T>::kVec;    // elements per 16-byte load
-  constexpr int kTpt = HD / kVec;        // threads per key
-  constexpr int kTpw = 32 / kTpt;        // keys per warp per step
-  constexpr int kSlots = kWarps * kTpw;  // keys per block per step
-  static_assert(kTpt >= 1 && kTpt <= 32 && 32 % kTpt == 0,
-                "head dim does not tile a warp");
-
-  __shared__ float sm_m[kWarps][kMaxG];
-  __shared__ float sm_l[kWarps][kMaxG];
-  __shared__ float sm_acc[kWarps][kMaxG][HD];
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int sub = lane % kTpt;           // which 16 bytes of the key
-  const int slot = warp * kTpw + lane / kTpt;
-  const int d0 = sub * kVec;
-
-  // keys past the table's reach cannot be read: clamp like the plain
-  // version's mask does
-  const int n = max(0, min(seq_lens[b], max_blocks * bs));
-  const int* table = block_table + (size_t)b * max_blocks;
-  const size_t tok_stride = (size_t)kvh * HD;
-  const size_t page_stride = (size_t)bs * tok_stride;
-  const size_t head_off = (size_t)h * HD + d0;
-
-  float qf[kMaxG][kVec];
-  const T* qrow = q + ((size_t)b * kvh + h) * G * HD;
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      uint4 r = *reinterpret_cast<const uint4*>(qrow + g * HD + d0);
-      Pack<T>::widen(r, qf[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) qf[g][i] = 0.f;
-    }
-  }
-
-  float m[kMaxG], l[kMaxG], acc[kMaxG][kVec];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[g][i] = 0.f;
-  }
-
-  // The loop bound depends only on the row, so every lane of a warp runs
-  // the same iterations and the shuffles below see the full warp.
-  for (int base = 0; base < n; base += kSlots * kUnroll) {
-    uint4 kr[kUnroll], vr[kUnroll];
-    bool valid[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int pos = base + u * kSlots + slot;
-      valid[u] = pos < n;
-      if (valid[u]) {
-        const int j = pos / bs;
-        const size_t off = (size_t)table[j] * page_stride +
-                           (size_t)(pos - j * bs) * tok_stride + head_off;
-        kr[u] = *reinterpret_cast<const uint4*>(kp + off);
-        vr[u] = *reinterpret_cast<const uint4*>(vp + off);
-      } else {
-        kr[u] = make_uint4(0, 0, 0, 0);
-        vr[u] = make_uint4(0, 0, 0, 0);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float kf[kVec], vf[kVec];
-      Pack<T>::widen(kr[u], kf);
-      Pack<T>::widen(vr[u], vf);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {  // G is the same for the whole block
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < kVec; ++i) s = fmaf(qf[g][i], kf[i], s);
-          // sum over the kTpt threads of this key (aligned groups)
-#pragma unroll
-          for (int o = kTpt / 2; o > 0; o >>= 1)
-            s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (valid[u]) {
-            s *= scale;
-            const float m_new = fmaxf(m[g], s);
-            const float alpha = expf(m[g] - m_new);
-            const float p = expf(s - m_new);
-            l[g] = l[g] * alpha + p;
-#pragma unroll
-            for (int i = 0; i < kVec; ++i)
-              acc[g][i] = fmaf(acc[g][i], alpha, p * vf[i]);
-            m[g] = m_new;
-          }
-        }
-      }
-    }
-  }
-
-  // merge the kTpw key groups of the warp
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      float mg = m[g];
-#pragma unroll
-      for (int o = kTpt; o < 32; o <<= 1)
-        mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, o));
-      const float c = expf(m[g] - mg);   // 1 when both are -1e30
-      float lg = l[g] * c;
-#pragma unroll
-      for (int o = kTpt; o < 32; o <<= 1)
-        lg += __shfl_xor_sync(0xffffffffu, lg, o);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        float a = acc[g][i] * c;
-#pragma unroll
-        for (int o = kTpt; o < 32; o <<= 1)
-          a += __shfl_xor_sync(0xffffffffu, a, o);
-        acc[g][i] = a;
-      }
-      m[g] = mg;
-      l[g] = lg;
-    }
-  }
-  if (lane < kTpt) {
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) sm_acc[warp][g][d0 + i] = acc[g][i];
-        if (sub == 0) {
-          sm_m[warp][g] = m[g];
-          sm_l[warp][g] = l[g];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // merge the warps: one output element per thread
-  float* orow = out + ((size_t)b * kvh + h) * G * HD;
-  for (int e = threadIdx.x; e < G * HD; e += kThreads) {
-    const int g = e / HD;
-    const int d = e % HD;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * c;
-      a += sm_acc[w][g][d] * c;
-    }
-    orow[e] = a / fmaxf(lsum, 1e-30f);
-  }
-}
-
-template <typename T>
-int launch_typed(const void* q, const void* kp, const void* vp,
-                 const int* table, const int* lens, float* out, int B,
-                 int kvh, int G, int hd, int bs, int max_blocks,
-                 float scale, cudaStream_t stream) {
-  const dim3 grid(kvh, B);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(kp);
-  const T* vt = static_cast<const T*>(vp);
-  switch (hd) {
-    case 16:
-      paged_decode_kernel<T, 16><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, table, lens, out, kvh, G, bs, max_blocks, scale);
-      break;
-    case 32:
-      paged_decode_kernel<T, 32><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, table, lens, out, kvh, G, bs, max_blocks, scale);
-      break;
-    case 64:
-      paged_decode_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, table, lens, out, kvh, G, bs, max_blocks, scale);
-      break;
-    case 128:
-      paged_decode_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, table, lens, out, kvh, G, bs, max_blocks, scale);
-      break;
-    default:
-      return -1;
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = fp32, 1 = fp16, 2 = bf16. Returns -1 for a shape or type
-// the kernel does not take, else cudaGetLastError() after the launch.
-// Launches on `stream` and does not synchronise.
+// dtype: 0 = fp32, 1 = fp16, 2 = bf16. ws holds ws_floats floats, at
+// least ceil(max_blocks * bs / 64) * B * kvh * G * (hd + 2). Returns -1
+// for a shape, type or workspace the kernels do not take, else
+// cudaGetLastError() after the two launches. Launches on `stream` and
+// does not synchronise.
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const int* block_table,
                                       const int* seq_lens, float* out,
-                                      int B, int kvh, int G, int hd, int bs,
+                                      float* ws, long long ws_floats, int B,
+                                      int kvh, int G, int hd, int bs,
                                       int max_blocks, int dtype, float scale,
                                       void* stream) {
-  if (G < 1 || G > kMaxG || bs < 1 || max_blocks < 1 || kvh < 1 || B < 0)
-    return -1;
-  if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  paged::Args a{q,       k_pages, v_pages, nullptr, nullptr,
+                block_table, seq_lens, out, nullptr, nullptr,
+                B,       kvh,     G,       bs,      max_blocks,
+                scale,   static_cast<cudaStream_t>(stream)};
+  if (!paged::prepare(a, hd, ws, ws_floats)) return -1;
   switch (dtype) {
-    case 0:
-      return launch_typed<float>(q, k_pages, v_pages, block_table, seq_lens,
-                                 out, B, kvh, G, hd, bs, max_blocks, scale,
-                                 s);
-    case 1:
-      return launch_typed<__half>(q, k_pages, v_pages, block_table, seq_lens,
-                                  out, B, kvh, G, hd, bs, max_blocks, scale,
-                                  s);
-    case 2:
-      return launch_typed<__nv_bfloat16>(q, k_pages, v_pages, block_table,
-                                         seq_lens, out, B, kvh, G, hd, bs,
-                                         max_blocks, scale, s);
-    default:
-      return -1;
+    case 0: return paged::launch_typed<float, float>(a, hd);
+    case 1: return paged::launch_typed<__half, __half>(a, hd);
+    case 2: return paged::launch_typed<__nv_bfloat16, __nv_bfloat16>(a, hd);
+    default: return -1;
   }
 }

@@ -21,7 +21,10 @@ and kv head ``h`` is ``code * kscale[p, h]``.
 :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (or
 ``csrc/paged_decode_int8.cu`` with ``kv_scales``) for CUDA tensors and
 runs :func:`paged_attn_reference` (:func:`paged_attn_reference_int8`)
-for CPU tensors.
+for CPU tensors. The CUDA side is two launches: split-KV partials over
+:data:`DECODE_SPLIT_KEYS`-key splits into a workspace, then their merge;
+:func:`decode_attn_partials` and :func:`merge_softmax_partials` are the
+plain versions of the two passes.
 
 The mixed launch serves prefill chunks, verify windows and decode
 tokens of many rows at once: q [B, T, kvh, G, hd] holds each row's
@@ -51,6 +54,8 @@ __all__ = ["NULL_PAGE", "KV_SCALE_EPS", "launch_counts", "route_counts",
            "paged_attn_reference", "paged_attn_reference_int8",
            "int8_block_update", "gather_pages_dequant",
            "paged_decode_attention", "check_kernel_args",
+           "decode_attn_partials", "decode_splits",
+           "decode_workspace_floats", "DECODE_SPLIT_KEYS",
            "mixed_attn_reference", "mixed_attn_partials",
            "merge_softmax_partials", "mixed_paged_attention",
            "mixed_route", "mixed_splits", "mixed_workspace_floats",
@@ -81,6 +86,10 @@ KERNEL_MAX_GROUP = 8
 #: keys of one split of the mixed kernel (``kSplit`` in
 #: ``csrc/mixed_paged.cu``)
 MIXED_SPLIT_KEYS = 256
+
+#: keys of one split of the paged-decode kernels (``kSplit`` in
+#: ``csrc/paged_decode.cuh``; ``csrc/paged_decode.cu`` says why 64)
+DECODE_SPLIT_KEYS = 64
 
 _KERNEL = "paged_decode"
 _KERNEL_INT8 = "paged_decode_int8"
@@ -183,6 +192,70 @@ def gather_pages_dequant(pages, block_table, scales):
     return g.reshape(B, mb * pages.shape[1], *pages.shape[2:])
 
 
+def decode_attn_partials(q, k_pages, v_pages, block_table, seq_lens,
+                         split_keys=DECODE_SPLIT_KEYS, kv_scales=None):
+    """The plain version of the paged-decode kernels' first pass: the
+    keys of the block table's width are cut into splits of
+    ``split_keys``, and each split gives every query head the
+    unnormalised softmax state of its row's keys there, with the
+    kernels' arithmetic: scores multiplied by 1/sqrt(hd); with
+    ``kv_scales``, the dot product on the raw codes scaled once per key
+    by kscale/sqrt(hd), and p scaled by vscale before it weights the
+    value codes. Returns (m, l) [n_splits, B, kvh, G] and acc
+    [n_splits, B, kvh, G, hd], fp32; a split with no key of its row
+    gives m = -1e30, l = 0, acc = 0. :func:`merge_softmax_partials`
+    over dim 0 finishes :func:`paged_attn_reference`'s function
+    (:func:`paged_attn_reference_int8`'s with ``kv_scales``)."""
+    import torch
+    B, kvh, G, hd = q.shape
+    mb, bs = block_table.shape[1], k_pages.shape[1]
+    dev = q.device
+    idx = block_table.reshape(-1).long()
+    ck = k_pages[idx].reshape(B, mb * bs, kvh, hd).float()
+    cv = v_pages[idx].reshape(B, mb * bs, kvh, hd).float()
+    sm_scale = 1.0 / hd ** 0.5
+    if kv_scales is None:
+        kscale = vscale = None
+    else:                       # per key [B, kvh, mb * bs]
+        kscale, vscale = (s.float()[idx].reshape(B, mb, kvh)
+                          .repeat_interleave(bs, dim=1).transpose(1, 2)
+                          for s in kv_scales)
+    n = seq_lens.to(dev).long()
+    qf = q.float()
+    ms, ls, accs = [], [], []
+    for k0 in range(0, mb * bs, split_keys):
+        k1 = min(k0 + split_keys, mb * bs)
+        j = torch.arange(k0, k1, device=dev)
+        ok = (j[None, :] < n[:, None])[:, None, None, :]    # [B, 1, 1, t]
+        s = torch.einsum("bngd,btnd->bngt", qf, ck[:, k0:k1])
+        if kscale is None:
+            s = s * sm_scale
+        else:
+            s = s * (kscale[:, :, k0:k1] * sm_scale)[:, :, None, :]
+        s = torch.where(ok, s, _NEG_INF)
+        m = s.amax(-1)
+        p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        if vscale is not None:
+            p = p * vscale[:, :, None, k0:k1]
+        accs.append(torch.einsum("bngt,btnd->bngd", p, cv[:, k0:k1]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def decode_splits(max_blocks, bs):
+    """Splits of the paged-decode kernels' first pass:
+    ceil(max_blocks * bs / DECODE_SPLIT_KEYS), from the block table's
+    width alone."""
+    return -(-max_blocks * bs // DECODE_SPLIT_KEYS)
+
+
+def decode_workspace_floats(B, kvh, G, hd, max_blocks, bs):
+    """fp32 elements of the paged-decode kernels' workspace: each
+    split's acc [B, kvh, G, hd], then each split's (m, l)."""
+    return decode_splits(max_blocks, bs) * B * kvh * G * (hd + 2)
+
+
 def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
                       kv_scales=None):
     """Raise ``ValueError`` unless the CUDA kernel takes these
@@ -244,38 +317,42 @@ def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
 
 def _bind(lib):
     fn = lib.paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def _bind_int8(lib):
     fn = lib.paged_decode_int8_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def _launch(q, k_pages, v_pages, block_table, seq_lens, kv_scales=None):
-    """Launch the fp kernel, or the int8 kernel with ``kv_scales``, on
-    the current stream; count the launch."""
+    """Launch the fp kernel, or the int8 kernel with ``kv_scales`` (split
+    pass and merge), on the current stream, with its workspace from
+    torch's allocator on that stream; count it once."""
     import torch
     check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
                       kv_scales)
     B, kvh, G, hd = q.shape
+    bs, mb = k_pages.shape[1], block_table.shape[1]
     out = torch.empty((B, kvh, G, hd), dtype=torch.float32,
                       device=q.device)
-    shape = (B, kvh, G, hd, k_pages.shape[1], block_table.shape[1],
-             _build.DTYPE_CODE[str(q.dtype)], 1.0 / (hd ** 0.5))
+    n_ws = decode_workspace_floats(B, kvh, G, hd, mb, bs)
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
+    shape = (n_ws, B, kvh, G, hd, bs, mb, _build.DTYPE_CODE[str(q.dtype)],
+             1.0 / (hd ** 0.5))
     if kv_scales is None:
         name = _KERNEL
         fn = _build.load(name, _bind).paged_decode_attention
-        ptrs = (q, k_pages, v_pages, block_table, seq_lens, out)
+        ptrs = (q, k_pages, v_pages, block_table, seq_lens, out, ws)
     else:
         name = _KERNEL_INT8
         fn = _build.load(name, _bind_int8).paged_decode_int8_attention
         ptrs = (q, k_pages, v_pages, *kv_scales, block_table, seq_lens,
-                out)
+                out, ws)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(a.data_ptr() for a in ptrs), *shape, stream)

@@ -43,7 +43,7 @@ from ..nn.functional.loss import cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LLAMA_PRESETS",
            "llama_loss_fn", "masked_prefill", "scatter_prefill_kv",
-           "prefix_prefill", "mixed_paged_step"]
+           "prefix_prefill", "mixed_paged_step", "mixed_paged_logits"]
 
 
 @dataclass
@@ -935,11 +935,22 @@ def mixed_paged_step(cfg, stacked, embed, final_norm, lm_head, ids, q_lens,
     padding), kv_lens [B] INCLUDING this launch's windows, tables
     [B, mb], pools [L, N, bs, kvh, hd] (and int8 scales [L, N, kvh])
     updated IN PLACE. Returns the argmax token [B, T] int32 at every
-    window slot (fp32 logits): the engine reads chunk first tokens,
-    verify chains and decode tokens off the windows. Padding slots rope
-    at position 0 and write NULL page 0, offset 0; rows with q_lens 0
-    are idle. Weights, pools and scales may be per-rank lists (tensor
-    parallel)."""
+    window slot (of :func:`mixed_paged_logits`): the engine reads chunk
+    first tokens, verify chains and decode tokens off the windows.
+    Padding slots rope at position 0 and write NULL page 0, offset 0;
+    rows with q_lens 0 are idle. Weights, pools and scales may be
+    per-rank lists (tensor parallel)."""
+    return mixed_paged_logits(
+        cfg, stacked, embed, final_norm, lm_head, ids, q_lens, kv_lens,
+        tables, pages_k, pages_v, kscales, vscales,
+        attn=attn).argmax(dim=-1).to(torch.int32)
+
+
+def mixed_paged_logits(cfg, stacked, embed, final_norm, lm_head, ids,
+                       q_lens, kv_lens, tables, pages_k, pages_v,
+                       kscales=None, vscales=None,
+                       attn=mixed_paged_attention):
+    """:func:`mixed_paged_step`'s pass up to its fp32 logits [B, T, V]."""
     stacks = _ranks(stacked)
     B, T = ids.shape
     bs = _ranks(pages_k)[0].shape[2]
@@ -959,4 +970,4 @@ def mixed_paged_step(cfg, stacked, embed, final_norm, lm_head, ids, q_lens,
             _per_layer(pages_v, i), _per_layer(kscales, i),
             _per_layer(vscales, i), attn=attn)
     x = _rms(x, final_norm, cfg.rms_norm_eps)
-    return (x @ lm_head).float().argmax(dim=-1).to(torch.int32)
+    return (x @ lm_head).float()

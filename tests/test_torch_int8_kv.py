@@ -108,6 +108,41 @@ def test_int8_reference_matches_interpret_kernel(m):
                                atol=TOL * np.abs(want).max())
 
 
+@pytest.fixture(scope="module")
+def split_case(m):
+    """Rows that end on a 64-key boundary, one key past it, at length 0
+    and at the table's full width (96), and the JAX
+    ``_paged_attn_reference_int8`` on them (run once)."""
+    arrays = _int8_case(seed=6, bs=16, lens=(64, 65, 0, 96))
+    q, kp, vp, table, lens, ks, vs = arrays
+    want = np.asarray(m.jpa._paged_attn_reference_int8(
+        *_j(m, q, kp, vp, table, lens), tuple(_j(m, ks, vs))))
+    return arrays, want
+
+
+@pytest.mark.parametrize("split_keys", [32, 64])
+def test_int8_decode_partials_merge_to_the_references(m, split_case,
+                                                      split_keys):
+    """The int8 kernels' split pass in plain PyTorch
+    (``decode_attn_partials`` with scales: raw-code dots scaled per key,
+    p scaled by vscale), merged by ``merge_softmax_partials``: equal to
+    paged_attn_reference_int8 and to the JAX
+    ``_paged_attn_reference_int8`` within 2e-5 (fp32 sums by splits,
+    the scales applied at other places), zeros at length 0."""
+    arrays, jax_want = split_case
+    tq, tkp, tvp, ttab, tlens, tks, tvs = _t(m, *arrays)
+    parts = m.pa.decode_attn_partials(tq, tkp, tvp, ttab, tlens,
+                                      split_keys=split_keys,
+                                      kv_scales=(tks, tvs))
+    assert parts[0].shape[0] == -(-96 // split_keys)
+    got = m.pa.merge_softmax_partials(*parts).numpy()
+    want = m.pa.paged_attn_reference_int8(tq, tkp, tvp, ttab, tlens,
+                                          (tks, tvs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got, jax_want, rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(got[2], 0.0)
+
+
 def test_int8_block_update_matches_jax_on_one_cell(m):
     """The one-page helper with the reference's single-cell signature,
     on a page whose tail lies past the row's length."""
@@ -392,7 +427,7 @@ def test_int8_c_interface_matches_the_ctypes_binding(m, monkeypatch):
         paged_decode_int8_attention=types.SimpleNamespace())
     m.pa._bind_int8(lib)
     n_params = len(found.group(1).split(","))
-    assert len(lib.paged_decode_int8_attention.argtypes) == n_params == 17
+    assert len(lib.paged_decode_int8_attention.argtypes) == n_params == 19
     assert "sm_90a" in src and "_paged_kernel_int8" in src
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cmd = _build.nvcc_command("paged_decode_int8", _build.library_path(

@@ -62,19 +62,78 @@ def test_reference_matches_jax_reference(pa, hd):
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
-def test_reference_matches_interpret_kernel_with_empty_row(pa):
-    """The TPU kernel run in interpret mode, on ragged rows plus one
-    all-NULL row of length 0, which both give zeros."""
+@pytest.fixture(scope="module")
+def empty_row_case():
+    """Ragged rows plus one all-NULL row of length 0, and the TPU
+    kernel's output on them in interpret mode (run once)."""
     import jax.numpy as jnp
     from paddle_tpu.kernels.paged_attention import paged_attention_pallas
     arrays = _random_paged(seed=3, B=3, lens=(11, 0, 24))
-    assert not arrays[3][1].any()            # the empty row is all NULL
     want = np.asarray(paged_attention_pallas(*map(jnp.asarray, arrays),
                                              interpret=True))
+    return arrays, want
+
+
+def test_reference_matches_interpret_kernel_with_empty_row(pa,
+                                                           empty_row_case):
+    """The TPU kernel run in interpret mode, on ragged rows plus one
+    all-NULL row of length 0, which both give zeros."""
+    arrays, want = empty_row_case
+    assert not arrays[3][1].any()            # the empty row is all NULL
     got = pa.mod.paged_attn_reference(*_port(pa, arrays)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
     assert not np.isnan(got).any()
     np.testing.assert_array_equal(got[1], 0.0)
+
+
+# The split pass of the CUDA kernels, merged: fp32 sums by splits and
+# the kernels' multiplication by 1/sqrt(hd), against references that
+# divide and sum in one pass
+SPLIT_TOL = 2e-5
+
+
+@pytest.mark.parametrize("split_keys", [16, 64])
+def test_decode_partials_merge_to_the_references(pa, split_keys):
+    """decode_attn_partials merged by merge_softmax_partials, on rows
+    that end on a split boundary (64 keys), one key past it (65), at
+    length 0 and at the table's full width (136): equal to
+    paged_attn_reference, and to the JAX ``_paged_attn_reference`` on
+    every row of nonzero length (it gives NaN at length 0). At 16 keys
+    the last split of the full row is a partial one."""
+    import jax.numpy as jnp
+    from paddle_tpu.kernels.paged_attention import _paged_attn_reference
+    arrays = _random_paged(seed=11, B=4, n_blocks=36, max_blocks=17,
+                           lens=(64, 65, 0, 136))
+    args = _port(pa, arrays)
+    m, l, acc = pa.mod.decode_attn_partials(*args, split_keys=split_keys)
+    assert m.shape[0] == -(-136 // split_keys)
+    got = pa.mod.merge_softmax_partials(m, l, acc).numpy()
+    want = pa.mod.paged_attn_reference(*args).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=SPLIT_TOL)
+    np.testing.assert_array_equal(got[2], 0.0)
+    jax_want = np.asarray(_paged_attn_reference(*map(jnp.asarray, arrays)))
+    live = [0, 1, 3]
+    np.testing.assert_allclose(got[live], jax_want[live], rtol=0,
+                               atol=SPLIT_TOL)
+    if split_keys == pa.mod.DECODE_SPLIT_KEYS:
+        assert pa.mod.decode_splits(17, 8) == m.shape[0]
+        assert pa.mod.decode_workspace_floats(4, 2, 2, 16, 17, 8) \
+            == m.shape[0] * 4 * 2 * 2 * (16 + 2)
+
+
+def test_decode_partials_match_interpret_kernel_with_empty_row(
+        pa, empty_row_case):
+    """The interpret-mode TPU kernel's rows (11 keys, 0, and 24 on a
+    boundary of 8-key splits): the merged partials equal its output,
+    zeros included, and the empty row's splits are the empty state."""
+    arrays, want = empty_row_case
+    m, l, acc = pa.mod.decode_attn_partials(*_port(pa, arrays),
+                                            split_keys=8)
+    got = pa.mod.merge_softmax_partials(m, l, acc).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=SPLIT_TOL)
+    np.testing.assert_array_equal(got[1], 0.0)
+    assert bool((m[:, 1] == -1e30).all() & (l[:, 1] == 0).all()
+                & (acc[:, 1] == 0).all())
 
 
 def test_null_page_contents_never_reach_an_output(pa):
@@ -188,7 +247,7 @@ def test_c_interface_matches_the_ctypes_binding(pa):
     lib = types.SimpleNamespace(
         paged_decode_attention=types.SimpleNamespace())
     pa.mod._bind(lib)
-    assert len(lib.paged_decode_attention.argtypes) == n_params == 15
+    assert len(lib.paged_decode_attention.argtypes) == n_params == 17
     assert "sm_90a" in src and "_paged_kernel" in src
 
 
