@@ -4,25 +4,26 @@ kernels built from another copy of their sources, in one process on one
 NVIDIA card, at chip_smoke.py's phase-2 shapes (B=4, kvh=8, G=4,
 hd=128, rows of 1, 1999, 512 and 0 keys).
 
-    python3 paged_decode_ab.py --baseline DIR
+    python3 paged_decode_ab.py --baseline DIR [--baseline DIR2 ...]
 
-DIR holds ``paged_decode.cu`` and ``paged_decode_int8.cu`` of the other
-version, for example extracted with ``git show
-<commit>:paddle_tpu_torch/kernels/csrc/paged_decode.cu``. Each is
-compiled with this checkout's nvcc flags into ``build/baseline/``
-(ignored by git) and bound by its exported function's parameters: with a
-``long long`` workspace size the wrapper allocates a workspace as this
-checkout's does, without one it takes none.
+Each DIR holds ``paged_decode.cu`` and ``paged_decode_int8.cu`` of
+another version, with the headers they include, for example extracted
+with ``git show <commit>:paddle_tpu_torch/kernels/csrc/<file>``. Each is
+compiled with this checkout's nvcc flags into ``build/baseline/<DIR's
+name>/`` (ignored by git) and bound by its exported function's
+parameters: with a ``long long`` workspace size the call gets a
+workspace of this checkout's size (and, with an ``unsigned*``, zeroed
+split counters), without one it gets none.
 
 First this checkout's kernels pass chip_smoke.py's phase 2 for the
 paged-decode kernels (every check, every type and block size). Then,
-for each case, the two versions run in turns (baseline, this, this,
-baseline), each turn 20 launches after a flush of the L2 cache,
-event-timed (median ms), then 20 more under torch.profiler: the
-device-only ms of the kernels whose name holds "paged_decode", per
-launch and by kernel (this checkout's split pass and merge apart). The
+for each case, the versions run in mirrored turns (the baselines in
+order, this checkout twice, the baselines in reverse), each turn 20
+launches after a flush of the L2 cache, event-timed (median ms), then
+20 more under torch.profiler: the device-only ms of the kernels whose
+name holds "paged_decode", per launch and by kernel. The
 plain version's and gather + SDPA's ms and the bound are taken once per
-case in the same process. Last, both versions again after a flush that
+case in the same process. Last, every version again after a flush that
 only reads (the L2 is evicted but left clean, where the zeroing flush
 leaves it full of lines to write back) and with no flush at all. The
 card's name and power limit come first.
@@ -38,15 +39,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 import chip_smoke as cs
 
 
 def build_baseline(src_dir: Path, name: str, fn_name: str):
-    """Compile DIR/<name>.cu into build/baseline/ and bind its C entry;
-    returns (the function, whether it takes a workspace)."""
+    """Compile DIR/<name>.cu into build/baseline/<DIR's name>/ and bind
+    its C entry; returns (the function, whether it takes a workspace,
+    whether it takes split counters)."""
     from paddle_tpu_torch.kernels import _build
     src = src_dir / f"{name}.cu"
     text = src.read_text()
@@ -55,7 +56,9 @@ def build_baseline(src_dir: Path, name: str, fn_name: str):
         raise RuntimeError(f"{src}: no exported {fn_name}")
     params = [p.strip() for p in m.group(1).split(",")]
     takes_ws = any(p.startswith("long long") for p in params)
-    out = _build.BUILD_DIR.parent / "baseline" / f"lib{name}.so"
+    takes_cnt = any(p.startswith("unsigned*") for p in params)
+    out = _build.BUILD_DIR.parent / "baseline" / src_dir.name \
+        / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
                            "-I", str(src_dir), "-o", str(out), str(src)],
@@ -69,12 +72,14 @@ def build_baseline(src_dir: Path, name: str, fn_name: str):
         + [ctypes.c_longlong] * takes_ws + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, takes_ws
+    return fn, takes_ws, takes_cnt
 
 
-def baseline_launch(fn, takes_ws, q, kp, vp, table, lens, kv_scales=None):
+def baseline_launch(fn, takes_ws, takes_cnt, q, kp, vp, table, lens,
+                    kv_scales=None):
     """One call of a baseline entry on the current stream, with a
-    workspace of this checkout's size where it takes one."""
+    workspace of this checkout's size and split counters where it takes
+    them."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import paged_attention as pa
     B, kvh, G, hd = q.shape
@@ -87,6 +92,10 @@ def baseline_launch(fn, takes_ws, q, kp, vp, table, lens, kv_scales=None):
         ptrs.append(torch.empty((n_ws,), dtype=torch.float32,
                                 device=q.device))
         ws_args = (n_ws,)
+    if takes_cnt:
+        ptrs.append(pa._counter_buffer(q.device,
+                                       torch.cuda.current_stream().cuda_stream,
+                                       B * kvh))
     err = fn(*(a.data_ptr() for a in ptrs), *ws_args, B, kvh, G, hd, bs, mb,
              _build.DTYPE_CODE[str(q.dtype)], 1.0 / hd ** 0.5,
              torch.cuda.current_stream().cuda_stream)
@@ -98,8 +107,10 @@ def baseline_launch(fn, takes_ws, q, kp, vp, table, lens, kv_scales=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, required=True,
-                    help="directory with the other version's "
-                         "paged_decode.cu and paged_decode_int8.cu")
+                    action="append",
+                    help="directory with another version's "
+                         "paged_decode.cu and paged_decode_int8.cu "
+                         "(repeatable)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -117,10 +128,11 @@ def main():
             cs.check(not spills, f"no spills in {entry}")
     cs.phase_kernels(True, args.seed)
     cs.phase_kernels_int8(True, args.seed)
-    old = build_baseline(args.baseline, "paged_decode",
-                         "paged_decode_attention")
-    old_int8 = build_baseline(args.baseline, "paged_decode_int8",
-                              "paged_decode_int8_attention")
+    olds = {d.name: (build_baseline(d, "paged_decode",
+                                    "paged_decode_attention"),
+                     build_baseline(d, "paged_decode_int8",
+                                    "paged_decode_int8_attention"))
+            for d in args.baseline}
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     read_flush = flush_buf.max         # evicts the L2 and leaves it clean
@@ -130,55 +142,58 @@ def main():
               for dt in (torch.bfloat16, torch.float32)]
     for kernel, dtype, bs in cases:
         name = str(dtype).replace("torch.", "")
-        if kernel == "paged_decode":
+        int8 = kernel == "paged_decode_int8"
+        if not int8:
             a = cs.paged_case(dtype, "cuda", args.seed)
             kv = None
             plain = lambda: pa.paged_attn_reference(*a)         # noqa: E731
             library = lambda: cs.sdpa_yardstick(*a)             # noqa: E731
             bound = cs.paged_bound_ms(a[0], a[1], a[3], a[4])
-            fn, takes_ws = old
         else:
             a, kv = cs.paged_int8_case(dtype, "cuda", args.seed, bs)
             plain = lambda: pa.paged_attn_reference_int8(*a, kv)  # noqa
             library = lambda: cs.sdpa_int8_yardstick(*a, kv)    # noqa: E731
             bound = cs.paged_int8_bound_ms(a[0], a[3], a[4], bs)
-            fn, takes_ws = old_int8
-        new = lambda: pa.paged_decode_attention(*a, kv_scales=kv)  # noqa
-        base = lambda: baseline_launch(fn, takes_ws, *a, kv)    # noqa: E731
-        err = float((base() - new()).abs().max())
-        cs.check(err <= 1e-4, f"{kernel} {name}: the two versions agree "
-                              f"({err})")
+        versions = {"this": lambda: pa.paged_decode_attention(
+            *a, kv_scales=kv)}
+        for d, built in olds.items():
+            versions[d] = (lambda b=built[int8]:
+                           baseline_launch(*b, *a, kv))
+        want = versions["this"]()
+        errs = {v: float((fn() - want).abs().max())
+                for v, fn in versions.items()}
+        cs.check(max(errs.values()) <= 1e-4,
+                 f"{kernel} {name}: the versions agree ({errs})")
         case = dict(kernel=kernel, dtype=name, bs=bs)
-        runs = {"baseline": [], "this": []}
-        for turn, which in enumerate(("baseline", "this", "this",
-                                      "baseline")):
-            fn_ = new if which == "this" else base
-            ms = cs.cuda_ms(fn_, flush=flush)
-            dev_ms, by_kernel, _ = cs.device_ms(fn_, "paged_decode",
+        order = list(olds) + ["this", "this"] + list(reversed(olds))
+        runs = {v: [] for v in versions}
+        for turn, v in enumerate(order):
+            ms = cs.cuda_ms(versions[v], flush=flush)
+            dev_ms, by_kernel, _ = cs.device_ms(versions[v], "paged_decode",
                                                 flush=flush)
-            runs[which].append((ms, dev_ms))
-            cs.say("ab", **case, version=which, turn=turn, ms=ms,
+            runs[v].append((ms, dev_ms))
+            cs.say("ab", **case, version=v, turn=turn, ms=ms,
                    device_ms=dev_ms,
                    device_ms_by_kernel=json.dumps(by_kernel).replace(" ",
                                                                      ""))
         for mode, fl in (("read", read_flush), ("none", None)):
-            for which, fn_ in (("this", new), ("baseline", base)):
+            for v, fn_ in versions.items():
                 dev_ms, by_kernel, _ = cs.device_ms(fn_, "paged_decode",
                                                     flush=fl)
-                cs.say("ab", **case, version=which, l2_flush=mode,
+                cs.say("ab", **case, version=v, l2_flush=mode,
                        ms=cs.cuda_ms(fn_, flush=fl), device_ms=dev_ms,
                        device_ms_by_kernel=json.dumps(by_kernel).replace(
                            " ", ""))
-        cs.say("ab", **case, baseline_ms=[r[0] for r in runs["baseline"]],
-               this_ms=[r[0] for r in runs["this"]],
-               baseline_device_ms=[r[1] for r in runs["baseline"]],
-               this_device_ms=[r[1] for r in runs["this"]],
+        cs.say("ab", **case,
+               ms=json.dumps({v: [r[0] for r in x] for v, x in runs.items()}
+                             ).replace(" ", ""),
+               device_ms=json.dumps({v: [r[1] for r in x]
+                                     for v, x in runs.items()}
+                                    ).replace(" ", ""),
                plain_ms=cs.cuda_ms(plain, flush=flush),
                library_ms=cs.cuda_ms(library, flush=flush),
                bound_ms=bound[0], bound_by=bound[1],
-               speedup_event=float(np.median([r[0] for r in runs["baseline"]])
-                                   / np.median([r[0] for r in runs["this"]])),
-               versions_max_abs_diff=err)
+               versions_max_abs_diff=json.dumps(errs).replace(" ", ""))
     print("paged_decode_ab: done", flush=True)
     return 0
 
