@@ -68,25 +68,23 @@
 
 #include "paged_decode.cuh"
 
-// dtype of q: 0 = fp32, 1 = fp16, 2 = bf16. ws holds ws_floats floats,
-// at least ceil(max_blocks * bs / 64) * B * kvh * G * (hd + 2);
-// counters holds B * kvh unsigned ints, all 0, and the launch leaves them
-// 0 (two launches in flight at once need two counter arrays). Returns -1
-// for a shape, type or workspace the kernel does not take, else
-// cudaGetLastError() after the launch. Launches on `stream` and does not
-// synchronise.
+// dtype: 0 = fp32, 1 = fp16, 2 = bf16. ws holds ws_floats floats, at
+// least ceil(max_blocks * bs / 64) * B * kvh * G * (hd + 2). Returns -1
+// for a shape, type or workspace the kernels do not take, else
+// cudaGetLastError() after the two launches. Launches on `stream` and
+// does not synchronise.
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const int* block_table,
                                       const int* seq_lens, float* out,
-                                      float* ws, unsigned* counters,
-                                      long long ws_floats, int B, int kvh,
-                                      int G, int hd, int bs, int max_blocks,
-                                      int dtype, float scale, void* stream) {
-  paged::Args a{q,           k_pages,  v_pages, nullptr, nullptr,
-                block_table, seq_lens, out,     nullptr, nullptr,
-                counters,    B,        kvh,     G,       bs,
-                max_blocks,  scale,    static_cast<cudaStream_t>(stream)};
+                                      float* ws, long long ws_floats, int B,
+                                      int kvh, int G, int hd, int bs,
+                                      int max_blocks, int dtype, float scale,
+                                      void* stream) {
+  paged::Args a{q,       k_pages, v_pages, nullptr, nullptr,
+                block_table, seq_lens, out, nullptr, nullptr,
+                B,       kvh,     G,       bs,      max_blocks,
+                scale,   static_cast<cudaStream_t>(stream)};
   if (!paged::prepare(a, hd, ws, ws_floats)) return -1;
   switch (dtype) {
     case 0: return paged::launch_typed<float, float>(a, hd);

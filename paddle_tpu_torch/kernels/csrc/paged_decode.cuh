@@ -4,19 +4,18 @@
 // their pool type and export their own C entry. The design and its
 // reasons are in paged_decode.cu's note.
 //
-// One launch on the caller's stream, paged_decode_kernel, grid (splits,
-// kvh, B), 128 threads: block (s, h, b) takes keys [s * kSplit,
-// (s + 1) * kSplit) of row b, cut at the row's length, for the G query
-// heads of kv head h, and writes their unnormalised softmax state (m, l,
-// acc[hd]) in fp32 to the workspace. The last block of (b, h) to finish,
-// found by a counter of finished splits, merges the row's splits in
-// split order into the output. A block whose split starts at or past the
-// row's length exits at once and writes nothing (split 0 of a row of
-// length 0 writes its zeros).
+// Two launches on the caller's stream:
+//   1. paged_decode_split_kernel, grid (splits, kvh, B), 128 threads:
+//      block (s, h, b) takes keys [s * kSplit, (s + 1) * kSplit) of row b,
+//      cut at the row's length, for the G query heads of kv head h, and
+//      writes their unnormalised softmax state (m, l, acc[hd]) in fp32 to
+//      the workspace. A block whose split starts at or past the row's
+//      length exits at once and writes nothing.
+//   2. paged_decode_merge_kernel, a warp per (row, kv head, head),
+//      combines its non-empty splits in split order.
 //
 // Workspace (fp32, the wrapper's): acc [splits][B][kvh][G][hd], then
-// (m, l) [splits][B][kvh][G][2]. Counters (the wrapper's): one unsigned
-// per (row, kv head), zero before the launch and zero again after it.
+// (m, l) [splits][B][kvh][G][2].
 
 #pragma once
 
@@ -155,73 +154,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The merge of one (row, kv head, head) by one warp, over the row's ns
-// non-empty splits, with merge_softmax_partials's math: M = max m,
-// w = exp(m - M), L = sum l w, out = sum acc w / max(L, 1e-30). The
-// lanes load the splits' (m, l) side by side (32 splits a round) and M
-// is their max; then lane c adds columns 4c..4c+3 of each split's acc,
-// and every lane adds l w, split after split in split order, taking each
-// split's w and l from the lane that loaded them; the columns of 16
-// splits are loaded before any of them is added, so their round trips
-// overlap. Loads go through L2 (other blocks wrote the partials). An
-// empty split's terms (m = -1e30, l = 0, acc = 0) have weight exactly 0,
-// so leaving them out gives the same bits.
-template <int HD>
-__device__ __forceinline__ void merge_warp(const float* ws_acc,
-                                           const float* ws_ml, int64_t idx,
-                                           int64_t per_split, int ns,
-                                           int lane, float* out) {
-  constexpr int V4 = HD / 4;                      // float4 columns: <= 32
-  constexpr int kBatch = 16;
-  float M = kNegInf;
-  for (int s = lane; s < ns; s += 32)
-    M = fmaxf(M, __ldcg(ws_ml + 2 * (s * per_split + idx)));
-  M = warp_max(M);
-  float L = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s0 = 0; s0 < ns; s0 += 32) {
-    float w = 0.f, l = 0.f;
-    if (s0 + lane < ns) {
-      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
-          ws_ml + 2 * ((s0 + lane) * per_split + idx)));
-      w = expf(ml.x - M);
-      l = ml.y;
-    }
-    const int cnt = min(32, ns - s0);
-    for (int k0 = 0; k0 < cnt; k0 += kBatch) {
-      float4 a[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (lane < V4 && k0 + u < cnt)
-          a[u] = __ldcg(reinterpret_cast<const float4*>(
-                            ws_acc + ((s0 + k0 + u) * per_split + idx) * HD) +
-                        lane);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (k0 + u >= cnt) break;
-        const float wk = __shfl_sync(0xffffffffu, w, k0 + u);
-        L = fmaf(__shfl_sync(0xffffffffu, l, k0 + u), wk, L);
-        acc.x = fmaf(a[u].x, wk, acc.x);
-        acc.y = fmaf(a[u].y, wk, acc.y);
-        acc.z = fmaf(a[u].z, wk, acc.z);
-        acc.w = fmaf(a[u].w, wk, acc.w);
-      }
-    }
-  }
-  if (lane < V4) {
-    const float ls = fmaxf(L, 1e-30f);
-    reinterpret_cast<float4*>(out + idx * HD)[lane] =
-        make_float4(acc.x / ls, acc.y / ls, acc.z / ls, acc.w / ls);
-  }
-}
-
-// The kernel. E is the pool's element type (T, or int8_t with
+// The split pass. E is the pool's element type (T, or int8_t with
 // kscale/vscale [N, kvh]), T q's type.
 template <typename E, typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q,
+    paged_decode_split_kernel(const T* __restrict__ q,
                               const E* __restrict__ kp,
                               const E* __restrict__ vp,
                               const float* __restrict__ kscale,
@@ -229,9 +166,7 @@ __global__ void __launch_bounds__(kThreads)
                               const int* __restrict__ block_table,
                               const int* __restrict__ seq_lens,
                               float* __restrict__ ws_acc,
-                              float* __restrict__ ws_ml,
-                              unsigned* __restrict__ counters,
-                              float* __restrict__ out, int B, int kvh,
+                              float* __restrict__ ws_ml, int B, int kvh,
                               int G, int bs, int max_blocks, float scale) {
   constexpr bool kInt8 = std::is_same<E, int8_t>::value;
   constexpr int LD = row_ld<E, HD>();
@@ -262,10 +197,6 @@ __global__ void __launch_bounds__(kThreads)
   // keys past the table's reach cannot be read: clamp as the plain
   // version's mask does
   const int n = max(0, min(len, max_blocks * bs));
-  if (n == 0 && split == 0) {   // no key: exact zeros
-    float* o = out + (int64_t(b) * kvh + h) * G * HD;
-    for (int e = threadIdx.x; e < G * HD; e += kThreads) o[e] = 0.f;
-  }
   if (kb >= n) return;
   const int nk = min(kSplit, n - kb);
   __syncthreads();
@@ -407,24 +338,79 @@ __global__ void __launch_bounds__(kThreads)
     reinterpret_cast<float4*>(a)[c] = make_float4(
         a0[0] + a1[0], a0[1] + a1[1], a0[2] + a1[2], a0[3] + a1[3]);
   }
+}
 
-  // The last of the row's ns non-empty splits to get here merges them:
-  // every block makes its partial visible to the card, then counts
-  // itself in; atomicInc wraps the count back to 0 at ns, ready for the
-  // next launch. No atomics on data: the merge's sums go in split order
-  // whichever block does them.
-  __shared__ bool last;
+// The merge: one warp per (row, kv head, head), over the row's non-empty
+// splits, with merge_softmax_partials's math: M = max m, w = exp(m - M),
+// L = sum l w, out = sum acc w / max(L, 1e-30). Lane s holds split s's
+// (m, l) and lane c columns 4c..4c+3 of every split's acc, 32 splits a
+// round; the first round's loads are all issued before M is known, so a
+// row of up to 32 splits (2048 keys) waits for one round trip to L2.
+// Every lane then adds l w, and lane c its columns times w, split after
+// split in split order, taking each split's w and l from the lane that
+// loaded them. An empty split's terms (m = -1e30, l = 0, acc = 0) have
+// weight exactly 0, so skipping them gives the same bits; a row of
+// length 0 has no split and gives 0 / 1e-30 = 0.
+template <int HD>
+__global__ void __launch_bounds__(256)
+    paged_decode_merge_kernel(const float* __restrict__ ws_acc,
+                              const float* __restrict__ ws_ml,
+                              const int* __restrict__ seq_lens,
+                              float* __restrict__ out, int B, int kvh,
+                              int G, int max_keys) {
+  constexpr int V4 = HD / 4;                      // float4 columns: <= 32
+  const int64_t per_split = int64_t(B) * kvh * G;
+  const int64_t idx = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (idx >= per_split) return;                   // the whole warp
+  const int b = int(idx / (int64_t(kvh) * G));
+  const int n = max(0, min(seq_lens[b], max_keys));
   const int ns = (n + kSplit - 1) / kSplit;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicInc(counters + int64_t(b) * kvh + h, unsigned(ns - 1)) ==
-           unsigned(ns - 1);
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int g = warp; g < G; g += kThreads / 32)
-    merge_warp<HD>(ws_acc, ws_ml, idx0 + g, per_split, ns, lane, out);
+  auto ml_of = [&](int s) {
+    return s < ns ? *reinterpret_cast<const float2*>(
+                        ws_ml + 2 * (s * per_split + idx))
+                  : make_float2(kNegInf, 0.f);
+  };
+  auto cols_of = [&](int s) {
+    return lane < V4 && s < ns
+               ? reinterpret_cast<const float4*>(
+                     ws_acc + (s * per_split + idx) * HD)[lane]
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  float4 a[32];
+#pragma unroll
+  for (int u = 0; u < 32; ++u) a[u] = cols_of(u);
+  float2 ml = ml_of(lane);
+  float M = ml.x;
+  for (int s = lane + 32; s < ns; s += 32)
+    M = fmaxf(M, ws_ml[2 * (s * per_split + idx)]);
+  M = warp_max(M);
+  float L = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < ns; s0 += 32) {
+    if (s0 > 0) {
+      ml = ml_of(s0 + lane);
+#pragma unroll
+      for (int u = 0; u < 32; ++u) a[u] = cols_of(s0 + u);
+    }
+    const float w = s0 + lane < ns ? expf(ml.x - M) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      if (s0 + u >= ns) break;
+      const float wu = __shfl_sync(0xffffffffu, w, u);
+      L = fmaf(__shfl_sync(0xffffffffu, ml.y, u), wu, L);
+      acc.x = fmaf(a[u].x, wu, acc.x);
+      acc.y = fmaf(a[u].y, wu, acc.y);
+      acc.z = fmaf(a[u].z, wu, acc.z);
+      acc.w = fmaf(a[u].w, wu, acc.w);
+    }
+  }
+  if (lane < V4) {
+    const float ls = fmaxf(L, 1e-30f);
+    reinterpret_cast<float4*>(out + idx * HD)[lane] =
+        make_float4(acc.x / ls, acc.y / ls, acc.z / ls, acc.w / ls);
+  }
 }
 
 struct Args {
@@ -432,7 +418,6 @@ struct Args {
   const float *kscale, *vscale;   // int8 pools only
   const int *table, *lens;
   float *out, *ws_acc, *ws_ml;
-  unsigned* counters;
   int B, kvh, G, bs, max_blocks;
   float scale;
   cudaStream_t stream;
@@ -446,7 +431,6 @@ inline int64_t splits_of(int max_blocks, int bs) {
 // Checks the shape and carves ws (ws_floats floats) into a.ws_acc and
 // a.ws_ml; false for a shape or workspace the kernels do not take.
 inline bool prepare(Args& a, int hd, float* ws, long long ws_floats) {
-  if (a.counters == nullptr) return false;
   if (a.B < 0 || a.B > 65535 || a.kvh < 1 || a.kvh > 65535 || a.G < 1 ||
       a.G > kMaxG || a.bs < 1 || a.max_blocks < 1)
     return false;
@@ -461,7 +445,7 @@ inline bool prepare(Args& a, int hd, float* ws, long long ws_floats) {
 
 template <typename E, typename T, int HD>
 int launch(const Args& a) {
-  auto kernel = paged_decode_kernel<E, T, HD>;
+  auto kernel = paged_decode_split_kernel<E, T, HD>;
   constexpr size_t smem = smem_bytes<E, HD>();
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -474,12 +458,18 @@ int launch(const Args& a) {
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const E*>(a.kp),
       static_cast<const E*>(a.vp), a.kscale, a.vscale, a.table, a.lens,
-      a.ws_acc, a.ws_ml, a.counters, a.out, a.B, a.kvh, a.G, a.bs,
-      a.max_blocks, a.scale);
+      a.ws_acc, a.ws_ml, a.B, a.kvh, a.G, a.bs, a.max_blocks, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int64_t n = int64_t(a.B) * a.kvh * a.G * 32;   // a warp each
+  paged_decode_merge_kernel<HD><<<unsigned((n + 255) / 256), 256, 0,
+                                  a.stream>>>(
+      a.ws_acc, a.ws_ml, a.lens, a.out, a.B, a.kvh, a.G,
+      a.max_blocks * a.bs);
   return int(cudaGetLastError());
 }
 
-// The launch for a run-time head dim; -1 for one not taken.
+// The two launches for a run-time head dim; -1 for one not taken.
 template <typename E, typename T>
 int launch_typed(const Args& a, int hd) {
   if (a.B == 0) return 0;

@@ -21,11 +21,10 @@ and kv head ``h`` is ``code * kscale[p, h]``.
 :func:`paged_decode_attention` launches ``csrc/paged_decode.cu`` (or
 ``csrc/paged_decode_int8.cu`` with ``kv_scales``) for CUDA tensors and
 runs :func:`paged_attn_reference` (:func:`paged_attn_reference_int8`)
-for CPU tensors. The CUDA side is one launch: split-KV partials over
-:data:`DECODE_SPLIT_KEYS`-key splits into a workspace, merged by the
-last block of each (row, kv head) to finish; :func:`decode_attn_partials`
-and :func:`merge_softmax_partials` are the plain versions of the two
-passes.
+for CPU tensors. The CUDA side is two launches: split-KV partials over
+:data:`DECODE_SPLIT_KEYS`-key splits into a workspace, then their merge;
+:func:`decode_attn_partials` and :func:`merge_softmax_partials` are the
+plain versions of the two passes.
 
 The mixed launch serves prefill chunks, verify windows and decode
 tokens of many rows at once: q [B, T, kvh, G, hd] holds each row's
@@ -316,40 +315,24 @@ def check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
         raise ValueError("all arguments must be on one device")
 
 
-#: the paged-decode kernels' split counters, by (device, stream): int32
-#: zeros, one per (row, kv head), that every launch leaves at zero again.
-#: Launches on one stream run in order and so can share them.
-_counters: dict = {}
-
-
-def _counter_buffer(device, stream, n):
-    """At least ``n`` zeroed split counters for launches on ``stream``."""
-    import torch
-    buf = _counters.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
-        _counters[(device, stream)] = buf
-    return buf
-
-
 def _bind(lib):
     fn = lib.paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def _bind_int8(lib):
     fn = lib.paged_decode_int8_attention
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def _launch(q, k_pages, v_pages, block_table, seq_lens, kv_scales=None):
-    """Launch the fp kernel, or the int8 kernel with ``kv_scales``, on
-    the current stream, with its workspace from torch's allocator on
-    that stream and that stream's split counters; count it once."""
+    """Launch the fp kernel, or the int8 kernel with ``kv_scales`` (split
+    pass and merge), on the current stream, with its workspace from
+    torch's allocator on that stream; count it once."""
     import torch
     check_kernel_args(q, k_pages, v_pages, block_table, seq_lens,
                       kv_scales)
@@ -361,19 +344,17 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens, kv_scales=None):
     ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
     shape = (n_ws, B, kvh, G, hd, bs, mb, _build.DTYPE_CODE[str(q.dtype)],
              1.0 / (hd ** 0.5))
+    if kv_scales is None:
+        name = _KERNEL
+        fn = _build.load(name, _bind).paged_decode_attention
+        ptrs = (q, k_pages, v_pages, block_table, seq_lens, out, ws)
+    else:
+        name = _KERNEL_INT8
+        fn = _build.load(name, _bind_int8).paged_decode_int8_attention
+        ptrs = (q, k_pages, v_pages, *kv_scales, block_table, seq_lens,
+                out, ws)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        counters = _counter_buffer(q.device, stream, B * kvh)
-        if kv_scales is None:
-            name = _KERNEL
-            fn = _build.load(name, _bind).paged_decode_attention
-            ptrs = (q, k_pages, v_pages, block_table, seq_lens, out, ws,
-                    counters)
-        else:
-            name = _KERNEL_INT8
-            fn = _build.load(name, _bind_int8).paged_decode_int8_attention
-            ptrs = (q, k_pages, v_pages, *kv_scales, block_table, seq_lens,
-                    out, ws, counters)
         err = fn(*(a.data_ptr() for a in ptrs), *shape, stream)
     if err != 0:
         why = "unsupported arguments" if err < 0 else "cudaError_t"

@@ -75,6 +75,19 @@ def build_baseline(src_dir: Path, name: str, fn_name: str):
     return fn, takes_ws, takes_cnt
 
 
+_zeros: dict = {}
+
+
+def _counters(device, n):
+    """Zeroed split counters for a baseline that takes them (its launches
+    leave them zero again), kept from call to call."""
+    buf = _zeros.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _zeros[device] = torch.zeros((n,), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def baseline_launch(fn, takes_ws, takes_cnt, q, kp, vp, table, lens,
                     kv_scales=None):
     """One call of a baseline entry on the current stream, with a
@@ -93,9 +106,7 @@ def baseline_launch(fn, takes_ws, takes_cnt, q, kp, vp, table, lens,
                                 device=q.device))
         ws_args = (n_ws,)
     if takes_cnt:
-        ptrs.append(pa._counter_buffer(q.device,
-                                       torch.cuda.current_stream().cuda_stream,
-                                       B * kvh))
+        ptrs.append(_counters(q.device, B * kvh))
     err = fn(*(a.data_ptr() for a in ptrs), *ws_args, B, kvh, G, hd, bs, mb,
              _build.DTYPE_CODE[str(q.dtype)], 1.0 / hd ** 0.5,
              torch.cuda.current_stream().cuda_stream)

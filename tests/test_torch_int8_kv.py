@@ -427,7 +427,7 @@ def test_int8_c_interface_matches_the_ctypes_binding(m, monkeypatch):
         paged_decode_int8_attention=types.SimpleNamespace())
     m.pa._bind_int8(lib)
     n_params = len(found.group(1).split(","))
-    assert len(lib.paged_decode_int8_attention.argtypes) == n_params == 20
+    assert len(lib.paged_decode_int8_attention.argtypes) == n_params == 19
     assert "sm_90a" in src and "_paged_kernel_int8" in src
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cmd = _build.nvcc_command("paged_decode_int8", _build.library_path(

@@ -247,7 +247,7 @@ def test_c_interface_matches_the_ctypes_binding(pa):
     lib = types.SimpleNamespace(
         paged_decode_attention=types.SimpleNamespace())
     pa.mod._bind(lib)
-    assert len(lib.paged_decode_attention.argtypes) == n_params == 18
+    assert len(lib.paged_decode_attention.argtypes) == n_params == 17
     assert "sm_90a" in src and "_paged_kernel" in src
 
 
