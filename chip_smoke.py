@@ -19,13 +19,19 @@ Phases, each printed as it ends:
   1. the card's name and power limit; every kernel built (one nvcc per
      source, the five sources at once: paged_decode, paged_decode_int8,
      mixed_paged, flash_fwd, flash_bwd), with the build seconds and
-     ptxas's register and spill counts (none allowed in a tensor-core
-     kernel or a mixed kernel); TF32 off for every fp32 product;
+     ptxas's register and spill counts (none allowed in a tensor-core,
+     mixed or paged-decode kernel); TF32 off for every fp32 product;
   2. each kernel against its plain version at the shapes the main path
      gives it: max-abs error, and its time beside the plain version's,
      one PyTorch library call's and the card's bound for the same work
-     (paged_decode at bs 16; paged_decode_int8 at bs 16 and 32, rows of
-     1, 1999, 512 and 0 keys, a poisoned NULL page; mixed_paged in
+     (paged_decode in bf16, fp16 and fp32 at bs 16, paged_decode_int8
+     with bf16 and fp32 queries at bs 16 and 32, rows of 1, 1999, 512
+     and 0 keys, a poisoned NULL page, each timed by CUDA events and
+     device-only under torch.profiler and required to beat its plain
+     version; both also at hd=64, G=8, bs=32 with rows on and just past
+     64-key split boundaries; bf16/fp16 row by row, two launches and NaN
+     in the NULL page (int8: in its scales) bit-identical, the split
+     size and workspace bytes printed; mixed_paged in
      bf16, fp16 and fp32 at T=128 with rows (q_len, kv_len) of (128,
      1536), (1, 1999), (5, 512) and (0, 0), at a decode-only T=16 shape,
      and at hd=64, G=8, bs=32 with windows across split boundaries, the
@@ -48,7 +54,9 @@ Phases, each printed as it ends:
      just before and read just after: the int8 kernel launched once per
      layer and decode step, the fp kernel never. One decode step of a
      1536-token row is replayed with every layer's kernel output held
-     against the plain int8 version;
+     against the plain int8 version, and kernel and plain argmaxes held
+     equal where the top-2 margin exceeds the step's largest logit
+     difference;
   6. speculative decoding on the same model (int8 KV, chunked prefill):
      4 requests of repeating prompts, 32 new tokens each; verify steps
      are prefills, so no paged-decode kernel launches;
@@ -85,8 +93,10 @@ Phases, each printed as it ends:
      memory; one mixed step holding a 128-token chunk beside decode
      lanes is replayed with the kernel and the plain attention (bf16:
      every layer's attention within tolerance, the engine's tokens
-     reproduced, argmax flips counted; fp32: every layer within 2e-5,
-     equal argmaxes at every valid slot); with --profile the replayed
+     reproduced, argmax flips counted and held where the top-2 margin
+     exceeds the step's largest logit difference; fp32: every layer
+     within 2e-5, equal argmaxes at every valid slot); with --profile
+     the replayed
      step's device time is split into the mixed kernel, GEMMs and rest;
  10a. the tiny preset in fp32 behind the mesh engine (chunked prefill,
      speculative decoding): identical tokens and counters on the card
@@ -298,9 +308,9 @@ def check_paged_bits(launch, got, poisoned, case):
 
 def time_paged(launch, plain, library, want, bound, flush, case):
     """Event-timed ms of the kernel, its device-only ms (torch.profiler
-    over 20 more flushed runs), the plain
-    version's and the library route's ms; the kernel must beat its
-    plain version. Returns the kernel's line for the JSON record."""
+    over 20 more flushed runs), the plain version's and the library
+    route's ms; the kernel must beat its plain version. Returns the
+    kernel's line for the JSON record."""
     ms = cuda_ms(launch, flush=flush)
     dev_ms, by_kernel, seen = device_ms(launch, "paged_decode", flush=flush)
     plain_ms = cuda_ms(plain, flush=flush)
@@ -1923,8 +1933,9 @@ def phase_train(on_card, args):
 def phase_profile(model, on_card, kv_dtype):
     """One decode_once of 4 rows (128-token prompts) with ``kv_dtype``
     pools under torch.profiler: host wall against summed device kernel
-    time, and the kernels that take the most device time. Launches here
-    come after the serving phases' counts were read."""
+    time, the paged-decode kernels' device time and share of it (split
+    pass and merge), and the kernels that take the most device time.
+    Launches here come after the serving phases' counts were read."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.serving import DecodeEngine
     eng = DecodeEngine(model, capacity=4, s_max=640, chunk=8,
@@ -1941,11 +1952,15 @@ def phase_profile(model, on_card, kv_dtype):
         eng.decode_once()
         wall = time.perf_counter() - t
     kernels, dev_us, n = device_kernels(prof)
+    paged = [e for e in kernels if "paged_decode" in e.key]
+    paged_us = sum(e.self_device_time_total for e in paged)
     say("profile", kv_dtype=kv_dtype,
         decode_once_wall_ms=round(wall * 1e3, 3),
         device_kernel_ms=round(dev_us / 1e3, 3), kernel_launches=n,
         device_busy_share=round(dev_us / 1e6 / max(wall, 1e-9), 4),
-        steps=eng.chunk)
+        steps=eng.chunk, paged_decode_ms=round(paged_us / 1e3, 3),
+        paged_decode_launches=sum(e.count for e in paged),
+        paged_decode_share=round(paged_us / max(dev_us, 1e-9), 4))
     for e in kernels[:8]:
         say("profile", kv_dtype=kv_dtype, kernel=e.key[:60].replace(" ", "_"),
             count=e.count, device_ms=round(e.self_device_time_total / 1e3, 3))

@@ -51,10 +51,10 @@
 //    head)'s non-empty splits in split order with
 //    merge_softmax_partials's math (paged_attention.py). No atomics, so
 //    two launches give the same bits. Why a second launch and not the
-//    last block of each (row, kv head) merging in the first: that needs a
-//    zeroed per-(row, kv head) counter that outlives the call and that
-//    two launches on two streams would share; the merge launch costs a
-//    few microseconds (PERF.md, the paged-decode rows, measures it).
+//    last block of each (row, kv head) merging in the first: on an H100
+//    that single launch took about 3% less device time (PERF.md), and
+//    it needs a zeroed per-(row, kv head) counter that outlives the call
+//    and that launches on two streams would share.
 //
 // Keys at or past seq_lens[b] are never read, so a row of length 0 has
 // no split and comes out as exact zeros, and the NULL page (where
